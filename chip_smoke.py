@@ -1,7 +1,11 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the mel
-front-end kernel from the sources in this checkout, holds it against its
-plain PyTorch version, then drives cnn_L3_melspec2 embedding extraction
-(the port's main path) end to end through its user entry points.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds both
+front-end kernels (mel and linear spectrogram) from the sources in this
+checkout, one nvcc each and both at once, holds each against its plain
+PyTorch version, then drives the port's paths end to end through their
+user entry points: embedding extraction for all five model types
+(cnn_L3_melspec2 and cnn_L3_orig at full width in f32 and bf16), the AVC
+forward of all five at batch 8, get_audio_embedding and
+get_image_embedding, each against a CPU copy of the same weights.
 
     python3 chip_smoke.py
 
@@ -9,7 +13,8 @@ Exits nonzero, with no result line, when no CUDA device is present or a
 phase fails. The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the kernels table (times measured in this run,
-bounds computed from this run's shapes).
+bounds computed from this run's shapes, launches counted over the main
+paths' runs only).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,6 +39,11 @@ PEAK_FP32 = 67e12
 PEAK_HBM = 3.35e12
 
 BATCH = 64  # a BUCKETS size
+AVC_BATCH = 8  # as __graft_entry__.entry()
+MODEL_TYPES = ("cnn_L3_orig", "cnn_L3_kapredbinputbn", "cnn_L3_melspec1",
+               "cnn_L3_melspec2", "tiny_L3")
+# Kernel launches on the main paths, by "{kernel}_{bf16|f32}".
+MAIN_PATH_LAUNCHES: Counter = Counter()
 
 
 def log(msg: str) -> None:
@@ -125,9 +137,7 @@ def phase_kernel(dev):
         lib = library_melspec(x, cfg, window, mel_t)
         ref = mel_kernel.melspectrogram_fused_ref(x, cfg, fast=False)
         assert row_cosines(lib, ref).min().item() > 0.9999
-        saved = mel_kernel.LAUNCHES
         ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=fast))
-        mel_kernel.LAUNCHES = saved  # timing launches are not main-path launches
         plain_ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused_ref(x, cfg, fast=fast), iters=5)
         library_ms = cuda_ms(lambda: library_melspec(x, cfg, window, mel_t))
         bound_ms, bound_by = mel_bound_ms(BATCH, 48000, cfg, fast)
@@ -141,86 +151,281 @@ def phase_kernel(dev):
     return results
 
 
+def spec_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str]:
+    """Least time for the linear front end at these shapes: the DFT product
+    at its operand type's peak (bf16 tensor cores, or the FP32 pipes), or
+    the bytes it must move (PCM in, bases in, |STFT| out) at the HBM rate,
+    whichever is larger."""
+    t = cfg.n_frames(n)
+    ops = 2.0 * batch * t * cfg.n_dft * 2 * cfg.n_freq
+    ops_s = ops / (PEAK_BF16_TC if fast else PEAK_FP32)
+    bytes_ = batch * n * 4 + 2 * cfg.n_dft * cfg.n_freq * (2 if fast else 4) + batch * cfg.n_freq * t * 4
+    return max(ops_s, bytes_ / PEAK_HBM) * 1e3, ("operations" if ops_s * PEAK_HBM > bytes_ else "bytes")
+
+
+def library_spec(x, cfg, window):
+    """One cuFFT STFT magnitude, the linear front end's yardstick, timed only
+    here; the port never calls it."""
+    spec = torch.stft(x, cfg.n_dft, cfg.hop, win_length=cfg.n_dft, window=window,
+                      center=False, return_complex=True)
+    return spec.abs()[..., None]
+
+
+def phase_spec_kernel(dev):
+    """The linear-spectrogram kernel against its plain version in the three
+    configurations the model types use (cnn_L3_orig amplitude, kapredbinputbn
+    dB, tiny dB with a 480-sample window), both operand types, both dB modes;
+    then its times at the orig configuration."""
+    from l3embedding_torch.ops import dsp_ref, spec_kernel
+    from l3embedding_torch.ops.frontend import SpectrogramConfig, amplitude_to_db
+
+    rng = np.random.RandomState(3)
+    pcm = (rng.randn(BATCH, 48000) * 0.3 * rng.uniform(0.01, 1.0, (BATCH, 1))).astype(np.float32)
+    pcm[1, 10000:30000] = 0.0  # a silent stretch: bins at the amin floor
+    x = torch.from_numpy(pcm).to(dev)
+    tiny = dict(n_dft=512, hop=240, n_win=480)
+    cases = [
+        ("orig", SpectrogramConfig()),
+        ("kapredbinputbn", SpectrogramConfig(decibel=True)),
+        ("kapredbinputbn batch-global", SpectrogramConfig(decibel=True, db_per_sample=False)),
+        ("tiny", SpectrogramConfig(decibel=True, **tiny)),
+        ("tiny batch-global", SpectrogramConfig(decibel=True, db_per_sample=False, **tiny)),
+    ]
+    results = {}
+    for fast in (True, False):
+        cos_gate, db_gate = (0.9999, 0.1) if fast else (0.999999, 0.01)
+        for name, cfg in cases:
+            got = spec_kernel.spectrogram_fused(x, cfg, fast=fast)
+            want = spec_kernel.spectrogram_fused_ref(x, cfg, fast=fast)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (BATCH, 257, cfg.n_frames(48000), 1), got.shape
+            assert torch.isfinite(got).all()
+            cos = row_cosines(got, want).min().item()
+            gd, wd = (got, want) if cfg.decibel else (amplitude_to_db(got), amplitude_to_db(want))
+            mean_db = (gd - wd).abs().mean().item()
+            max_abs = (got - want).abs().max().item()
+            log(f"spec kernel fast={fast} {name}: min cosine {cos:.9f} (> {cos_gate}), "
+                f"mean |d| {mean_db:.6f} dB (< {db_gate}), max |d| {max_abs:.6g}")
+            if not (cos > cos_gate and mean_db < db_gate):
+                raise SystemExit(f"spec kernel disagrees with its plain version (fast={fast}, {name})")
+            if name == "orig":
+                results[fast] = {"max_abs_err": max_abs}
+
+        cfg = SpectrogramConfig()
+        window = torch.from_numpy(dsp_ref.periodic_hann(cfg.n_dft).astype(np.float32)).to(dev)
+        lib = library_spec(x, cfg, window)
+        ref = spec_kernel.spectrogram_fused_ref(x, cfg, fast=False)
+        assert row_cosines(lib, ref).min().item() > 0.9999
+        ms = cuda_ms(lambda: spec_kernel.spectrogram_fused(x, cfg, fast=fast))
+        plain_ms = cuda_ms(lambda: spec_kernel.spectrogram_fused_ref(x, cfg, fast=fast), iters=5)
+        library_ms = cuda_ms(lambda: library_spec(x, cfg, window))
+        bound_ms, bound_by = spec_bound_ms(BATCH, 48000, cfg, fast)
+        mode = "bf16" if fast else "f32"
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): kernel {ms:.4f} ms")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): plain {plain_ms:.4f} ms")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): library (torch.stft+abs) {library_ms:.4f} ms")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): bound {bound_ms:.4f} ms ({bound_by})")
+        results[fast].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    return results
+
+
+def main_path(fn):
+    """Run one main-path call with every kernel count at 0 just before it;
+    add the counts read just after to MAIN_PATH_LAUNCHES and return
+    (result, counts)."""
+    from l3embedding_torch.ops import mel_kernel, spec_kernel
+
+    mel_kernel.LAUNCHES.clear()
+    spec_kernel.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = Counter({f"mel_frontend_{k}": v for k, v in mel_kernel.LAUNCHES.items()})
+    counts.update({f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()})
+    MAIN_PATH_LAUNCHES.update(counts)
+    return out, counts
+
+
+def front_end_kernel(model_type: str, fast: bool) -> str:
+    """The kernel a model type's audio front end must launch."""
+    name = "mel_frontend" if "melspec" in model_type else "spec_frontend"
+    return f"{name}_{'bf16' if fast and model_type != 'tiny_L3' else 'f32'}"
+
+
 def phase_slice(dev):
+    """Extraction through EmbeddingExtractor for all five model types:
+    cnn_L3_melspec2 and cnn_L3_orig in both poolings, the others 'short';
+    f32 and bf16; rows against a CPU copy of the same weights, windows/s.
+    Then get_audio_embedding for mel256 and linear."""
     from l3embedding_torch import api
     from l3embedding_torch.embed.extract import EmbeddingExtractor
-    from l3embedding_torch.ops import mel_kernel
 
     rng = np.random.RandomState(1)
     windows = (rng.randn(BATCH, 48000) * 0.2).astype(np.float32)
-    launches = {}
-    for fast in (False, True):
-        gate = 0.999 if fast else 0.9999
-        for pooling, dim in (("short", 512), ("original", 6144)):
-            ext = EmbeddingExtractor(None, "cnn_L3_melspec2", pooling, fast=fast, device=dev)
-            mel_kernel.LAUNCHES = 0
-            emb = ext.embed_windows(windows)
-            n_launch = mel_kernel.LAUNCHES
-            launches[fast] = launches.get(fast, 0) + n_launch
-            assert emb.shape == (BATCH, dim), emb.shape
-            assert np.isfinite(emb).all()
-            if n_launch < 1:
-                raise SystemExit("the extractor did not go through the mel kernel")
-            cpu_model = copy.deepcopy(ext.model).to("cpu")
-            cpu_rows = cpu_model(torch.from_numpy(windows[:4])[:, None, :])
-            cos = row_cosines(torch.from_numpy(emb[:4]), cpu_rows).min().item()
-            log(f"extractor fast={fast} {pooling}: {emb.shape}, kernel launches {n_launch}, "
-                f"min cosine vs CPU copy {cos:.7f} (>= {gate})")
+    windows[3, 10000:30000] = 0.0  # a silent stretch inside one window
+    for model_type in MODEL_TYPES:
+        full = model_type in ("cnn_L3_melspec2", "cnn_L3_orig")
+        poolings = (("short", 512), ("original", 6144)) if full else (("short", None),)
+        for fast in (False, True):
+            gate = 0.999 if fast and model_type != "tiny_L3" else 0.9999
+            for pooling, dim in poolings:
+                ext = EmbeddingExtractor(None, model_type, pooling, fast=fast, device=dev)
+                emb, counts = main_path(lambda: ext.embed_windows(windows))
+                kernel = front_end_kernel(model_type, fast)
+                assert emb.shape[0] == BATCH and (dim is None or emb.shape[1] == dim), emb.shape
+                assert np.isfinite(emb).all()
+                if counts[kernel] < 1:
+                    raise SystemExit(f"{model_type} extraction did not go through {kernel}")
+                cpu_model = copy.deepcopy(ext.model).to("cpu")
+                cpu_rows = cpu_model(torch.from_numpy(windows[:4])[:, None, :])
+                cos = row_cosines(torch.from_numpy(emb[:4]), cpu_rows).min().item()
+                log(f"extractor {model_type} fast={fast} {pooling}: {emb.shape}, launches "
+                    f"{dict(counts)}, min cosine vs CPU copy {cos:.7f} (>= {gate})")
+                if cos < gate:
+                    raise SystemExit(f"{model_type}: GPU rows disagree with the CPU copy")
+                t0 = time.perf_counter()
+                reps = 3
+                for _ in range(reps):
+                    ext.embed_windows(windows)
+                dt = (time.perf_counter() - t0) / reps
+                log(f"extractor {model_type} fast={fast} {pooling}: {BATCH / dt:.1f} windows/s")
+
+    clip = (np.sin(2 * np.pi * 440 * np.arange(int(3.3 * 44100)) / 44100) * 0.3
+            + rng.randn(int(3.3 * 44100)) * 0.05).astype(np.float32)
+    ext = EmbeddingExtractor(None, "cnn_L3_melspec2", "short", device=dev)
+    (emb_c, ts), _ = main_path(lambda: api.get_audio_embedding(clip, 44100, model=ext))
+    # 158400 samples at 48 kHz, half a window of front padding.
+    rows = 1 + int(np.ceil((158400 + 24000 - 48000) / 4800))
+    assert emb_c.shape == (rows, 512) and ts.shape == (rows,), (emb_c.shape, ts.shape)
+    assert np.isfinite(emb_c).all()
+    log(f"get_audio_embedding mel256 3.3 s @ 44.1 kHz: {emb_c.shape}, ts {ts[:3]}..{ts[-1]:.1f}")
+
+    short = clip[: int(1.2 * 44100)]
+    (emb_l, _), counts = main_path(
+        lambda: api.get_audio_embedding(short, 44100, input_repr="linear", device=dev))
+    emb_cpu, _ = api.get_audio_embedding(short, 44100, input_repr="linear", device="cpu")
+    cos = row_cosines(torch.from_numpy(emb_l), torch.from_numpy(emb_cpu)).min().item()
+    log(f"get_audio_embedding linear 1.2 s @ 44.1 kHz: {emb_l.shape}, launches {dict(counts)}, "
+        f"min cosine vs CPU {cos:.7f} (>= 0.9999)")
+    if counts["spec_frontend_f32"] < 1 or cos < 0.9999 or not np.isfinite(emb_l).all():
+        raise SystemExit("get_audio_embedding(input_repr='linear') failed on the card")
+
+
+def phase_avc(dev):
+    """The AVC forward (vision + audio towers + head) at batch 8, as
+    __graft_entry__.entry(), for all five model types, f32 and bf16 (tiny:
+    f32 only, as in the JAX package): logits and predict_proba against a CPU
+    copy of the same weights, and the forward's time."""
+    from l3embedding_torch.models.registry import build_model
+
+    rng = np.random.RandomState(0)
+    video = torch.from_numpy(rng.rand(AVC_BATCH, 224, 224, 3).astype(np.float32) * 2 - 1)
+    audio = torch.from_numpy((rng.rand(AVC_BATCH, 1, 48000).astype(np.float32) * 2 - 1) * 0.5)
+    v_dev, a_dev = video.to(dev), audio.to(dev)
+    for model_type in MODEL_TYPES:
+        for fast in ((False,) if model_type == "tiny_L3" else (False, True)):
+            dtype = torch.bfloat16 if fast else torch.float32
+            gate = 0.999 if fast else 0.9999
+            model = build_model(model_type).module(dtype)
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model = model.eval().to(dev)
+            with torch.no_grad():
+                logits, counts = main_path(lambda: model(v_dev, a_dev))
+                kernel = front_end_kernel(model_type, fast)
+                if counts[kernel] < 1:
+                    raise SystemExit(f"{model_type} AVC forward did not go through {kernel}")
+                proba = model.predict_proba(v_dev, a_dev)
+                assert logits.shape == (AVC_BATCH, 2) and logits.dtype == torch.float32
+                assert torch.isfinite(logits).all()
+                assert torch.allclose(proba.sum(-1), torch.ones(AVC_BATCH, device=dev))
+                rows = 2 if fast else 4
+                cpu_logits = copy.deepcopy(model).to("cpu")(video[:rows], audio[:rows])
+                got = logits[:rows].cpu()
+                cos = row_cosines(got.reshape(1, -1), cpu_logits.reshape(1, -1)).item()
+                rel = ((got - cpu_logits).abs().max() / cpu_logits.abs().max()).item()
+                ms = cuda_ms(lambda: model(v_dev, a_dev), iters=5, warmup=1)
+            log(f"avc {model_type} fast={fast}: logits {tuple(logits.shape)}, launches {dict(counts)}, "
+                f"cosine vs CPU copy {cos:.7f} (>= {gate}), max |d|/max {rel:.2e}, "
+                f"forward {ms:.3f} ms at batch {AVC_BATCH}")
             if cos < gate:
-                raise SystemExit("GPU rows disagree with the CPU copy")
-            t0 = time.perf_counter()
-            reps = 3
-            for _ in range(reps):
-                ext.embed_windows(windows)
-            dt = (time.perf_counter() - t0) / reps
-            log(f"extractor fast={fast} {pooling}: {BATCH / dt:.1f} windows/s")
-            if pooling == "short" and not fast:
-                clip = (np.sin(2 * np.pi * 440 * np.arange(int(3.3 * 44100)) / 44100) * 0.3
-                        + rng.randn(int(3.3 * 44100)) * 0.05).astype(np.float32)
-                emb_c, ts = api.get_audio_embedding(clip, 44100, model=ext)
-                # 158400 samples at 48 kHz, half a window of front padding.
-                rows = 1 + int(np.ceil((158400 + 24000 - 48000) / 4800))
-                assert emb_c.shape == (rows, 512) and ts.shape == (rows,), (emb_c.shape, ts.shape)
-                assert np.isfinite(emb_c).all()
-                log(f"get_audio_embedding 3.3 s @ 44.1 kHz: {emb_c.shape}, ts {ts[:3]}..{ts[-1]:.1f}")
-    return launches
+                raise SystemExit(f"{model_type}: AVC logits disagree with the CPU copy")
+
+
+def phase_image(dev):
+    """get_image_embedding on three 240×320 uint8 frames (min-side resize,
+    center crop) with cnn_L3_orig's vision tower, against a CPU copy."""
+    from l3embedding_torch import api
+
+    frames = np.random.RandomState(5).randint(0, 256, (3, 240, 320, 3), dtype=np.uint8)
+    model = api.ImageEmbeddingModel(model_type="cnn_L3_orig", device=dev)
+    emb, ts = api.get_image_embedding(frames, 25.0, model=model)
+    assert emb.shape == (3, 8192) and np.isfinite(emb).all(), emb.shape
+    x = api.preprocess_frames(frames)
+    x = torch.from_numpy(2.0 * (x.astype(np.float32) / 255.0) - 1.0)
+    cpu_rows = copy.deepcopy(model.model).to("cpu")(x)
+    cos = row_cosines(torch.from_numpy(emb), cpu_rows).min().item()
+    log(f"get_image_embedding 3x240x320 uint8 (cnn_L3_orig): {emb.shape}, ts {ts}, "
+        f"min cosine vs CPU copy {cos:.7f} (>= 0.9999)")
+    if cos < 0.9999:
+        raise SystemExit("image embeddings disagree with the CPU copy")
 
 
 def phase_profile(dev):
-    """Where one 64-window extractor call spends device time, per mode:
-    the top kernels by self device time, and the device's idle share of
-    the wall time."""
+    """Where one 64-window extractor call spends device time, per model type
+    and mode: the top kernels by self device time, and the device's idle
+    share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from l3embedding_torch.embed.extract import EmbeddingExtractor
 
     windows = (np.random.RandomState(2).randn(BATCH, 48000) * 0.2).astype(np.float32)
-    for fast in (False, True):
-        ext = EmbeddingExtractor(None, "cnn_L3_melspec2", "short", fast=fast, device=dev)
-        ext.embed_windows(windows)
-        reps = 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                ext.embed_windows(windows)
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    for model_type in ("cnn_L3_melspec2", "cnn_L3_orig"):
+        for fast in (False, True):
+            ext = EmbeddingExtractor(None, model_type, "short", fast=fast, device=dev)
+            ext.embed_windows(windows)
+            reps = 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    ext.embed_windows(windows)
+                wall_ms = (time.perf_counter() - t0) * 1e3 / reps
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            def dev_us(e):
+                return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-        # Device-side events only (kernels, copies): the host-side aten ops
-        # carry their kernels' time too and would count it twice.
-        events = [
-            e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-        ]
-        total_ms = sum(dev_us(e) for e in events) / 1e3 / reps
-        log(f"profile fast={fast}: wall {wall_ms:.3f} ms/call ({BATCH * 1e3 / wall_ms:.1f} windows/s "
-            f"under the profiler), device busy {total_ms:.3f} ms/call, "
-            f"idle share {max(0.0, 1 - total_ms / wall_ms):.3f}")
-        for e in sorted(events, key=dev_us, reverse=True)[:8]:
-            ms = dev_us(e) / 1e3 / reps
-            log(f"  {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%  {e.key[:90]}")
+            # Device-side events only (kernels, copies): the host-side aten ops
+            # carry their kernels' time too and would count it twice.
+            events = [
+                e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+            ]
+            total_ms = sum(dev_us(e) for e in events) / 1e3 / reps
+            log(f"profile {model_type} fast={fast}: wall {wall_ms:.3f} ms/call "
+                f"({BATCH * 1e3 / wall_ms:.1f} windows/s under the profiler), device busy "
+                f"{total_ms:.3f} ms/call, idle share {max(0.0, 1 - total_ms / wall_ms):.3f}")
+            for e in sorted(events, key=dev_us, reverse=True)[:8]:
+                ms = dev_us(e) / 1e3 / reps
+                log(f"  {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%  {e.key[:90]}")
+
+
+def build_kernels():
+    """Build every kernel source at once (one nvcc each), then load them."""
+    from l3embedding_torch.ops import cuda_build, mel_kernel, spec_kernel
+
+    t0 = time.perf_counter()
+    names = ("mel_frontend", "spec_frontend")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, lib in zip(names, pool.map(lambda n: cuda_build.build(n, verbose=True), names)):
+            log(f"built {name}: {lib.name}")
+    mel_kernel._library()
+    spec_kernel._library()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+
+
+KERNELS = {
+    "mel_frontend": ("l3embedding_torch/csrc/mel_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:81"),
+    "spec_frontend": ("l3embedding_torch/csrc/spec_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:183"),
+}
 
 
 def main() -> int:
@@ -236,25 +441,24 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    from l3embedding_torch.ops import mel_kernel
-
-    t0 = time.perf_counter()
-    mel_kernel.build(verbose=True)
-    mel_kernel._library()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-
-    kernel = phase_kernel(dev)
-    launches = phase_slice(dev)
+    build_kernels()
+    measured = {"mel_frontend": phase_kernel(dev), "spec_frontend": phase_spec_kernel(dev)}
+    phase_slice(dev)
+    phase_avc(dev)
+    phase_image(dev)
     phase_profile(dev)
 
-    src = "l3embedding_torch/csrc/mel_frontend.cu"
-    replaces = "l3embedding_tpu/ops/pallas_frontend.py:81"
-    kernels = [
-        {"name": f"mel_frontend_{'bf16' if fast else 'f32'}", "route": "cuda",
-         "source": src, "replaces": replaces, "launches": launches[fast], **kernel[fast]}
-        for fast in (True, False)
-    ]
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        for fast in (True, False):
+            key = f"{name}_{'bf16' if fast else 'f32'}"
+            if MAIN_PATH_LAUNCHES[key] < 1:
+                raise SystemExit(f"{key} was not launched on the main paths")
+            kernels.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,
+                            "launches": MAIN_PATH_LAUNCHES[key], **measured[name][fast]})
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
-"""PyTorch/CUDA port of l3embedding_tpu: L3 audio-embedding extraction on an
-NVIDIA H100, with the mel front end as a hand-written Hopper kernel.
+"""PyTorch/CUDA port of l3embedding_tpu on an NVIDIA H100: L3 audio and
+image embedding extraction and the AVC forward for all five model types,
+with the audio front ends (mel and linear spectrogram) as hand-written
+Hopper kernels.
 
 Imports torch, numpy and scipy only; nothing of JAX or l3embedding_tpu.
 """

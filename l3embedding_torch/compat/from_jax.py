@@ -1,16 +1,21 @@
-"""Carry JAX/flax audio-tower variables into the port's modules.
+"""Carry JAX/flax AVC variables into the port's modules.
 
-``from_jax_variables({"params": ..., "batch_stats": ...}, model_type)``
-takes the audio subtree of a flax AVC model's variables as numpy arrays
-(``variables["params"]["audio_model"]`` and the matching batch stats; a
-full AVC tree is also accepted and sliced) and returns a state dict for
-``L3AudioTower``.
+Each function takes flax variables as numpy arrays, ``{"params": ...,
+"batch_stats": ...}`` (the full AVC tree, or for the tower functions the
+tower's own subtree), and returns a state dict:
 
-Naming follows flax's auto-names: ``BatchNorm_0`` is the input BN and
-``BatchNorm_1`` the final BN, ``ConvBNRelu_{i}/{Conv_0, BatchNorm_0}``
-the blocks, ``audio_embedding_layer`` the embedding conv. Conv kernels go
-from HWIO to OIHW; BN scale/bias/mean/var go to
-weight/bias/running_mean/running_var.
+  * ``from_jax_variables(variables, model_type)`` → the audio tower's;
+  * ``vision_from_jax_variables(variables, model_type)`` → the vision tower's;
+  * ``avc_from_jax_variables(variables, model_type)`` → the whole AVCModel's.
+
+Naming follows flax's auto-names. In a full tower ``ConvBNRelu_{i}/{Conv_0,
+BatchNorm_0}`` are the blocks and ``{audio,vision}_embedding_layer`` the
+embedding conv; ``BatchNorm_0`` is the input BN and ``BatchNorm_1`` the
+final BN, except where the tower has no input BN (cnn_L3_orig), where the
+final BN is ``BatchNorm_0``. In a tiny tower the convs are ``Conv_0``,
+``Conv_1``, ``embedding_conv`` and the BNs ``BatchNorm_0..2``. Conv kernels
+go from HWIO to OIHW, dense kernels from (in, out) to (out, in); BN
+scale/bias/mean/var go to weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.registry import build_model
+from ..models.registry import ModelSpec, build_model
 
 
 def _t(a) -> torch.Tensor:
@@ -28,6 +33,13 @@ def _t(a) -> torch.Tensor:
 def _conv(p: dict, prefix: str) -> dict:
     return {
         f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
+        f"{prefix}.bias": _t(p["bias"]),
+    }
+
+
+def _dense(p: dict, prefix: str) -> dict:
+    return {
+        f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
         f"{prefix}.bias": _t(p["bias"]),
     }
 
@@ -42,18 +54,53 @@ def _bn(p: dict, s: dict, prefix: str) -> dict:
     }
 
 
-def from_jax_variables(variables_np: dict, model_type: str) -> dict:
-    """flax {"params", "batch_stats"} audio subtree → L3AudioTower state dict."""
-    build_model(model_type)  # raises for a type the port does not have yet
+def _subtree(variables_np: dict, name: str) -> tuple[dict, dict]:
     p, s = variables_np["params"], variables_np["batch_stats"]
-    if "audio_model" in p:
-        p, s = p["audio_model"], s["audio_model"]
+    if name in p:
+        p, s = p[name], s[name]
+    return p, s
+
+
+def _tower(p: dict, s: dict, spec: ModelSpec, input_bn: bool, embedding: str) -> dict:
     sd = {}
-    sd.update(_bn(p["BatchNorm_0"], s["BatchNorm_0"], "input_bn"))
+    if spec.tiny:
+        for i, conv in enumerate(("Conv_0", "Conv_1", "embedding_conv")):
+            sd.update(_conv(p[conv], f"convs.{i}"))
+            sd.update(_bn(p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"], f"bns.{i}"))
+        return sd
+    if input_bn:
+        sd.update(_bn(p["BatchNorm_0"], s["BatchNorm_0"], "input_bn"))
     for i in range(7):
         bp, bs = p[f"ConvBNRelu_{i}"], s[f"ConvBNRelu_{i}"]
         sd.update(_conv(bp["Conv_0"], f"blocks.{i}.conv"))
         sd.update(_bn(bp["BatchNorm_0"], bs["BatchNorm_0"], f"blocks.{i}.bn"))
-    sd.update(_conv(p["audio_embedding_layer"], "embedding_conv"))
-    sd.update(_bn(p["BatchNorm_1"], s["BatchNorm_1"], "final_bn"))
+    sd.update(_conv(p[embedding], "embedding_conv"))
+    final = f"BatchNorm_{int(input_bn)}"
+    sd.update(_bn(p[final], s[final], "final_bn"))
+    return sd
+
+
+def from_jax_variables(variables_np: dict, model_type: str) -> dict:
+    """flax {"params", "batch_stats"} → the audio tower's state dict."""
+    spec = build_model(model_type)
+    p, s = _subtree(variables_np, "audio_model")
+    return _tower(p, s, spec, spec.audio_frontend != "linear", "audio_embedding_layer")
+
+
+def vision_from_jax_variables(variables_np: dict, model_type: str) -> dict:
+    """flax {"params", "batch_stats"} → the vision tower's state dict."""
+    spec = build_model(model_type)
+    p, s = _subtree(variables_np, "vision_model")
+    return _tower(p, s, spec, spec.vision_input_bn, "vision_embedding_layer")
+
+
+def avc_from_jax_variables(variables_np: dict, model_type: str) -> dict:
+    """Full flax AVC variables → the AVCModel's state dict."""
+    sd = {}
+    for name, fn in (("audio_model", from_jax_variables),
+                     ("vision_model", vision_from_jax_variables)):
+        sd.update({f"{name}.{k}": v for k, v in fn(variables_np, model_type).items()})
+    p = variables_np["params"]
+    sd.update(_dense(p["merge_dense"], "merge_dense"))
+    sd.update(_dense(p["output_dense"], "output_dense"))
     return sd

@@ -57,16 +57,18 @@ def _bucket(n: int) -> int:
 
 
 class EmbeddingExtractor:
-    """Batched audio-embedding extractor for one (model_type, pooling),
-    holding the tower's weights resident on `device`.
+    """Batched audio-embedding extractor for one (model_type, pooling) of
+    any of the five model types, holding the tower's weights resident on
+    `device`.
 
     weights_path: a ``.ckpt`` written by the JAX package
     (``training/checkpoints.save_variables``), or None for a random model:
     He-normal conv kernels drawn from a ``torch.Generator`` seeded with
     INIT_SEED. That init is reproducible but is not flax's: the numbers
     differ from the JAX extractor's random init.
-    fast=True runs the bf16 tower (bf16 kernel front end and convs);
-    False keeps the f32 parity configuration.
+    fast=True runs the bf16 tower (bf16 kernel front end and convs;
+    tiny_L3 stays f32, as in the JAX package); False keeps the f32 parity
+    configuration.
     db_batch_global=True reproduces kapre<=0.1.x's batch-global dB quirk.
     """
 

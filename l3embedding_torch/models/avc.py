@@ -1,0 +1,49 @@
+"""Audio-Visual Correspondence model (port of ``l3embedding_tpu/models/avc.py``).
+
+concat(vision, audio) → Dense(layer_size) → ReLU → Dense(2), returning f32
+logits; ``predict_proba`` is the softmax over them (the reference's
+``model.predict()``). Submodule names mirror flax's (``vision_model``,
+``audio_model``, ``merge_dense``, ``output_dense``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .towers import HeInit, ieee_fp32
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class AVCModel(HeInit):
+    """vision_model + audio_model + correspondence head.
+
+    video: (B, 224, 224, 3) NHWC in [-1, 1]; audio: (B, 1, 48000) or
+    (B, 48000) PCM. The dense layers run in `dtype` with f32 parameters;
+    the logits are f32.
+    """
+
+    def __init__(self, vision_model: nn.Module, audio_model: nn.Module,
+                 layer_size: int = 128, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.vision_model = vision_model
+        self.audio_model = audio_model
+        self.dtype = dtype
+        self.merge_dense = nn.Linear(vision_model.out_dim + audio_model.out_dim, layer_size)
+        self.output_dense = nn.Linear(layer_size, 2)
+
+    def forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+        # Keras concat order: vision output first.
+        y = torch.cat([self.vision_model(video), self.audio_model(audio)], dim=-1)
+        with ieee_fp32(y.is_cuda and self.dtype == torch.float32):
+            y = torch.relu(_dense(self.merge_dense, y, self.dtype))
+            return _dense(self.output_dense, y, self.dtype).float()
+
+    @torch.no_grad()
+    def predict_proba(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+        """Correspondence probabilities: softmax over the 2-way head."""
+        return torch.softmax(self(video, audio), dim=-1)

@@ -1,8 +1,9 @@
-"""Model registry of the port (``l3embedding_tpu/models/registry.py``).
+"""Model registry of the port: the five AVC model types of the reference
+(port of ``l3embedding_tpu/models/registry.py``).
 
-Only the audio towers of the mel model types are ported so far. The other
-three reference types are known names that raise NotImplementedError
-until their slice of the port (ROADMAP Queue 2 item 2 and Queue 1 item 5).
+``build_model(model_type)`` returns a ModelSpec that builds the audio
+tower, the vision tower or the whole AVC model, and carries the audio
+embedding pooling table.
 """
 
 from __future__ import annotations
@@ -11,56 +12,96 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .towers import L3AudioTower
+from .avc import AVCModel
+from .towers import L3AudioTower, L3VisionTower, TinyL3AudioTower, TinyL3VisionTower
 
 _FULL_POOL_257 = {"original": (8, 8), "short": (32, 24)}
 _FULL_POOL_128 = {"original": (4, 8), "short": (16, 24)}
 
-_NOT_PORTED = ("cnn_L3_orig", "cnn_L3_kapredbinputbn", "tiny_L3")
-
 
 @dataclass(frozen=True)
 class ModelSpec:
-    """A ported model type: its audio tower's shape and embedding poolings."""
+    """A model type: its towers' shapes and its embedding poolings.
+
+    audio_frontend is the L3AudioTower front end ('linear', 'linear_db',
+    'mel'), or 'tiny' for the miniature towers, which are always f32 (the
+    JAX package's tiny_L3 ignores compute_dtype)."""
 
     name: str
-    n_mels: int
-    final_pool: tuple
+    audio_frontend: str
+    n_mels: int = 128
+    final_pool: tuple = (32, 24)
+    vision_input_bn: bool = True
+    layer_size: int = 128
     # SAME max-pool sizes over the raw embedding-conv output, per pooling
     # type (reference audio_model.py:461-478).
     audio_embedding_pooling: dict = field(default_factory=dict)
 
+    @property
+    def tiny(self) -> bool:
+        return self.audio_frontend == "tiny"
+
     def audio_tower(
         self, compute_dtype: torch.dtype = torch.float32, db_batch_global: bool = False
-    ) -> L3AudioTower:
+    ):
         """A fresh (uninitialised) audio tower; compute_dtype float32 is
         the parity configuration, bfloat16 the fast one."""
+        if self.tiny:
+            return TinyL3AudioTower(db_batch_global=db_batch_global)
         return L3AudioTower(
-            frontend_kind="mel",
+            frontend_kind=self.audio_frontend,
             n_mels=self.n_mels,
             final_pool=self.final_pool,
             dtype=compute_dtype,
             db_batch_global=db_batch_global,
         )
 
+    def vision_tower(self, compute_dtype: torch.dtype = torch.float32):
+        """A fresh (uninitialised) vision tower."""
+        if self.tiny:
+            return TinyL3VisionTower()
+        return L3VisionTower(input_bn=self.vision_input_bn, dtype=compute_dtype)
+
+    def module(
+        self, compute_dtype: torch.dtype = torch.float32, db_batch_global: bool = False
+    ) -> AVCModel:
+        """A fresh (uninitialised) AVC model."""
+        if self.tiny:
+            compute_dtype = torch.float32
+        return AVCModel(
+            self.vision_tower(compute_dtype),
+            self.audio_tower(compute_dtype, db_batch_global),
+            layer_size=self.layer_size,
+            dtype=compute_dtype,
+        )
+
 
 MODELS: dict[str, ModelSpec] = {
+    "cnn_L3_orig": ModelSpec(
+        name="cnn_L3_orig", audio_frontend="linear", vision_input_bn=False,
+        audio_embedding_pooling=_FULL_POOL_257,
+    ),
+    "cnn_L3_kapredbinputbn": ModelSpec(
+        name="cnn_L3_kapredbinputbn", audio_frontend="linear_db",
+        audio_embedding_pooling=_FULL_POOL_257,
+    ),
     "cnn_L3_melspec1": ModelSpec(
-        name="cnn_L3_melspec1", n_mels=128, final_pool=(16, 24),
+        name="cnn_L3_melspec1", audio_frontend="mel", n_mels=128, final_pool=(16, 24),
         audio_embedding_pooling=_FULL_POOL_128,
     ),
     "cnn_L3_melspec2": ModelSpec(
-        name="cnn_L3_melspec2", n_mels=256, final_pool=(32, 24),
+        name="cnn_L3_melspec2", audio_frontend="mel", n_mels=256,
         audio_embedding_pooling=_FULL_POOL_257,
+    ),
+    "tiny_L3": ModelSpec(
+        name="tiny_L3", audio_frontend="tiny", layer_size=64,
+        # Tiny embedding = the flattened final feature map itself.
+        audio_embedding_pooling={"original": (1, 1), "short": (1, 1)},
     ),
 }
 
 
 def build_model(model_type: str) -> ModelSpec:
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported to PyTorch yet (see ROADMAP)"
-        )
     if model_type not in MODELS:
         raise ValueError(
             f'Invalid model type: "{model_type}" (have: {sorted(MODELS)})'

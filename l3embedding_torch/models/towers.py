@@ -1,18 +1,23 @@
-"""The L3 audio tower as PyTorch modules (port of ``l3embedding_tpu/models/towers.py``).
+"""The L3 audio and vision towers as PyTorch modules (port of
+``l3embedding_tpu/models/towers.py``).
 
-NCHW inside; at the public boundary the front-end output and the
-embedding feature map keep the JAX package's NHWC layout, so the two
+NCHW inside; at the public boundary the front-end output, the images and
+the embedding feature maps keep the JAX package's NHWC layout, so the two
 packages compare like with like. Inference only: BatchNorm always uses
 its running statistics (eval mode), with Keras's eps of 1e-3.
 
 Parity quirks kept from the reference:
-  * the embedding tap is the raw output of ``audio_embedding_layer``,
-    before its BatchNorm and ReLU;
-  * audio max-pools are VALID (256×199 → 128×99 → 64×49 → 32×24).
+  * the embedding tap is the raw output of ``{audio,vision}_embedding_layer``,
+    before its BatchNorm and ReLU (the tiny towers: the last pooled map);
+  * audio max-pools are VALID (256×199 → 128×99 → 64×49 → 32×24); vision
+    max-pools are SAME (2×2, then the final (28, 28));
+  * vision block 1 applies ReLU *before* BatchNorm on its second conv;
+  * cnn_L3_orig has no input BatchNorm in either tower.
 
 ``dtype=torch.bfloat16`` is the fast tower: parameters stay f32 and are
 cast per call, convs run in bf16, and each BatchNorm computes in f32 and
-rounds its output to bf16 (as flax does with f32 statistics).
+rounds its output to bf16 (as flax does with f32 statistics). The tiny
+towers are always f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,14 +30,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.frontend import MelConfig
+from ..ops.frontend import MelConfig, SpectrogramConfig, l3_log_norm
 from ..ops.mel_kernel import melspectrogram_fused
+from ..ops.spec_kernel import spectrogram_fused
 
 BN_EPS = 1e-3
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=1)
+    return F.conv2d(
+        x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding
+    )
 
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -43,40 +51,142 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return y.to(dtype)
 
 
+def same_max_pool(x: torch.Tensor, pool: Sequence[int]) -> torch.Tensor:
+    """NCHW max-pool, window = stride = pool, with TF/flax SAME padding
+    (the extra row or column goes to the bottom/right)."""
+    pads = []
+    for size, k in zip(x.shape[2:], pool):
+        total = max((-(-size // k) - 1) * k + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    (top, bottom), (left, right) = pads
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, tuple(pool), tuple(pool))
+
+
+def nhwc_flatten(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, H·W·C) in NHWC order, f32."""
+    return x.float().permute(0, 2, 3, 1).flatten(1)
+
+
 @contextlib.contextmanager
-def _ieee_fp32_convs(active: bool):
-    """Keep f32 convs out of TF32 on the card (the parity configuration
-    matches JAX's Precision.HIGHEST); restores the caller's setting."""
+def ieee_fp32(active: bool):
+    """Keep f32 convs and matmuls out of TF32 on the card (the parity
+    configuration matches JAX's Precision.HIGHEST); restores the caller's
+    settings."""
     if not active:
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class HeInit(nn.Module):
+    """A module whose conv and dense kernels start He-normal."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He-normal (truncated at 2σ, flax's he_normal) conv and dense
+        kernels from `generator`, zero biases, identity BatchNorms."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                    fan_in = m.weight[0].numel()
+                    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+                    nn.init.trunc_normal_(
+                        m.weight, 0.0, std, -2 * std, 2 * std, generator=generator
+                    )
+                    m.bias.zero_()
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.reset_parameters()
 
 
 class ConvBNRelu(nn.Module):
-    """3×3 SAME conv → BN → ReLU."""
+    """3×3 SAME conv → BN → ReLU (relu_before_bn: conv → ReLU → BN)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, relu_before_bn: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.relu_before_bn = relu_before_bn
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return torch.relu(_bn(self.bn, _conv(self.conv, x, dtype), dtype))
+        y = _conv(self.conv, x, dtype)
+        if self.relu_before_bn:
+            return _bn(self.bn, torch.relu(y), dtype)
+        return torch.relu(_bn(self.bn, y, dtype))
 
 
-class L3AudioTower(nn.Module):
-    """The 4-block L3 audio subnetwork over the mel front end.
+class _L3Trunk(HeInit):
+    """The 4-block L3 conv stack shared by the full towers: optional input
+    BN, 7× ConvBNRelu (64,64 | 128,128 | 256,256 | 512) with a 2×2 pool
+    after each pair, the raw embedding conv, then final BN → ReLU → pool.
+    Subclasses give the input, the pools and the input BN."""
 
-    frontend_kind 'mel' is cnn_L3_melspec1/2: dB mel (n_mels) + input BN.
-    The front end is ``melspectrogram_fused``: the hand-written kernel on
-    the card, its plain version on the CPU. db_batch_global=True
-    reproduces kapre<=0.1.x's batch-global dB max reference.
+    out_dim = 512
+
+    def __init__(self, in_ch: int, input_bn: bool, dtype: torch.dtype,
+                 relu_before_bn: tuple[int, ...] = ()):
+        super().__init__()
+        self.dtype = dtype
+        self.input_bn = nn.BatchNorm2d(in_ch, eps=BN_EPS) if input_bn else None
+        widths = (64, 64, 128, 128, 256, 256, 512)
+        self.blocks = nn.ModuleList(
+            ConvBNRelu(i, o, relu_before_bn=k in relu_before_bn)
+            for k, (i, o) in enumerate(zip((in_ch,) + widths[:-1], widths))
+        )
+        self.embedding_conv = nn.Conv2d(512, 512, 3, padding=1)
+        self.final_bn = nn.BatchNorm2d(512, eps=BN_EPS)
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        """The tower's input → NCHW f32 before the input BN."""
+        raise NotImplementedError
+
+    def _pool(self, y: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _final_pool(self, y: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Input → raw embedding-conv output, NCHW in the compute dtype."""
+        y = self._input(x)
+        y = _bn(self.input_bn, y, self.dtype) if self.input_bn is not None else y.to(self.dtype)
+        for i, block in enumerate(self.blocks):
+            y = block(y, self.dtype)
+            if i in (1, 3, 5):
+                y = self._pool(y)
+        return _conv(self.embedding_conv, y, self.dtype)
+
+    def _fp32(self, x: torch.Tensor):
+        return ieee_fp32(x.is_cuda and self.dtype == torch.float32)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """Input → raw embedding feature map (B, H, W, 512), NHWC, f32."""
+        with self._fp32(x):
+            return self._trunk(x).float().permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Input → (B, 512) tower output: final BN, ReLU, final pool."""
+        with self._fp32(x):
+            y = torch.relu(_bn(self.final_bn, self._trunk(x), self.dtype))
+            return nhwc_flatten(self._final_pool(y))
+
+
+class L3AudioTower(_L3Trunk):
+    """The 4-block L3 audio subnetwork over one of three front ends:
+
+      'linear'    — |STFT| + L3 log norm, no input BN (cnn_L3_orig)
+      'linear_db' — dB |STFT| + input BN              (cnn_L3_kapredbinputbn)
+      'mel'       — dB mel (n_mels) + input BN        (cnn_L3_melspec1/2)
+
+    The front end is a fused kernel (``spectrogram_fused`` or
+    ``melspectrogram_fused``): the hand-written kernel on the card, its
+    plain version on the CPU. db_batch_global=True reproduces kapre<=0.1.x's
+    batch-global dB max reference.
     """
 
     def __init__(
@@ -87,68 +197,117 @@ class L3AudioTower(nn.Module):
         dtype: torch.dtype = torch.float32,
         db_batch_global: bool = False,
     ):
-        super().__init__()
-        if frontend_kind in ("linear", "linear_db"):
-            raise NotImplementedError(
-                f"frontend_kind {frontend_kind!r} is not ported yet "
-                "(ROADMAP Queue 2, item 2: _spec_kernel and the linear towers)"
-            )
-        if frontend_kind != "mel":
+        if frontend_kind not in ("linear", "linear_db", "mel"):
             raise ValueError(f"unknown frontend_kind {frontend_kind!r}")
+        super().__init__(1, input_bn=frontend_kind != "linear", dtype=dtype)
+        self.frontend_kind = frontend_kind
         self.n_mels = n_mels
         self.final_pool = tuple(final_pool)
-        self.dtype = dtype
         self.db_batch_global = db_batch_global
-        self.input_bn = nn.BatchNorm2d(1, eps=BN_EPS)
-        widths = (64, 64, 128, 128, 256, 256, 512)
-        self.blocks = nn.ModuleList(
-            ConvBNRelu(i, o) for i, o in zip((1,) + widths[:-1], widths)
-        )
-        self.embedding_conv = nn.Conv2d(512, 512, 3, padding=1)
-        self.final_bn = nn.BatchNorm2d(512, eps=BN_EPS)
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """He-normal (truncated at 2σ, flax's he_normal) conv kernels from
-        `generator`, zero biases, identity BatchNorms."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
-                    nn.init.trunc_normal_(
-                        m.weight, 0.0, std, -2 * std, 2 * std, generator=generator
-                    )
-                    m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
-                    m.reset_parameters()
 
     def frontend(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 1, n) or (B, n) PCM → (B, n_mels, T, 1) dB mel features, f32."""
+        """(B, 1, n) or (B, n) PCM → (B, F, T, 1) front-end features, f32."""
         if x.dim() == 3:
             x = x[:, 0, :]
-        cfg = MelConfig(n_mels=self.n_mels, db_per_sample=not self.db_batch_global)
-        return melspectrogram_fused(
-            x.float().contiguous(), cfg, fast=self.dtype == torch.bfloat16
-        )
+        x = x.float().contiguous()
+        fast = self.dtype == torch.bfloat16
+        db_ps = not self.db_batch_global
+        if self.frontend_kind == "mel":
+            return melspectrogram_fused(x, MelConfig(n_mels=self.n_mels, db_per_sample=db_ps), fast)
+        if self.frontend_kind == "linear":
+            return l3_log_norm(spectrogram_fused(x, SpectrogramConfig(), fast))
+        return spectrogram_fused(x, SpectrogramConfig(decibel=True, db_per_sample=db_ps), fast)
+
+    def _input(self, x):
+        return self.frontend(x).permute(0, 3, 1, 2)
+
+    def _pool(self, y):
+        return F.max_pool2d(y, 2)  # VALID
+
+    def _final_pool(self, y):
+        return F.max_pool2d(y, self.final_pool)
+
+
+class L3VisionTower(_L3Trunk):
+    """The 4-block L3 vision subnetwork: (B, 224, 224, 3) NHWC images →
+    512-d. input_bn adds BatchNorm on the raw input (every type but
+    cnn_L3_orig)."""
+
+    def __init__(self, input_bn: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(3, input_bn=input_bn, dtype=dtype, relu_before_bn=(1,))
+
+    def _input(self, x):
+        return x.float().permute(0, 3, 1, 2)
+
+    def _pool(self, y):
+        return same_max_pool(y, (2, 2))
+
+    def _final_pool(self, y):
+        return same_max_pool(y, (28, 28))
+
+
+class _TinyL3(HeInit):
+    """Three conv5×5 VALID (10 filters) → BN → ReLU → VALID 3×3 max-pool
+    blocks, f32. The embedding feature map is the last pooled map, and
+    the tower's output is that map flattened."""
+
+    def __init__(self, in_ch: int):
+        super().__init__()
+        self.dtype = torch.float32
+        self.convs = nn.ModuleList(nn.Conv2d(c, 10, 5) for c in (in_ch, 10, 10))
+        self.bns = nn.ModuleList(nn.BatchNorm2d(10, eps=BN_EPS) for _ in range(3))
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """PCM → raw audio_embedding_layer output, NCHW in the compute dtype."""
-        y = self.frontend(x).permute(0, 3, 1, 2)  # NHWC → NCHW
-        y = _bn(self.input_bn, y, self.dtype)
-        for i, block in enumerate(self.blocks):
-            y = block(y, self.dtype)
-            if i in (1, 3, 5):
-                y = F.max_pool2d(y, 2)  # VALID
-        return _conv(self.embedding_conv, y, self.dtype)
+        y = self._input(x)
+        for conv, bn in zip(self.convs, self.bns):
+            y = F.max_pool2d(torch.relu(_bn(bn, _conv(conv, y, self.dtype), self.dtype)), 3)
+        return y
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """PCM → raw embedding feature map (B, H, W, 512), NHWC, f32."""
-        with _ieee_fp32_convs(x.is_cuda and self.dtype == torch.float32):
-            return self._trunk(x).float().permute(0, 2, 3, 1)
+        """Input → the last pooled map (B, H, W, 10), NHWC, f32."""
+        with ieee_fp32(x.is_cuda):
+            return self._trunk(x).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """PCM → (B, 512) tower output: final BN, ReLU, VALID final pool."""
-        with _ieee_fp32_convs(x.is_cuda and self.dtype == torch.float32):
-            y = torch.relu(_bn(self.final_bn, self._trunk(x), self.dtype))
-            y = F.max_pool2d(y, self.final_pool)
-            return y.float().permute(0, 2, 3, 1).flatten(1)
+        with ieee_fp32(x.is_cuda):
+            return nhwc_flatten(self._trunk(x))
+
+
+class TinyL3AudioTower(_TinyL3):
+    """Miniature audio tower: dB |STFT| (n_dft 512, hop 240, a 480-sample
+    window, VALID framing: 257×198) through the f32 spectrogram kernel,
+    then the tiny blocks → 7×5×10 = 350."""
+
+    out_dim = 350
+
+    def __init__(self, db_batch_global: bool = False):
+        super().__init__(1)
+        self.db_batch_global = db_batch_global
+
+    def frontend(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, n) or (B, n) PCM → (B, 257, T, 1) dB spectrogram, f32."""
+        if x.dim() == 3:
+            x = x[:, 0, :]
+        cfg = SpectrogramConfig(
+            n_dft=512, hop=240, n_win=480, padding="valid", power=1.0,
+            decibel=True, db_per_sample=not self.db_batch_global,
+        )
+        return spectrogram_fused(x.float().contiguous(), cfg, fast=False)
+
+    def _input(self, x):
+        return self.frontend(x).permute(0, 3, 1, 2)
+
+
+class TinyL3VisionTower(_TinyL3):
+    """Miniature vision tower: (B, 224, 224, 3) NHWC → 6×6×10 = 360."""
+
+    out_dim = 360
+
+    def __init__(self):
+        super().__init__(3)
+
+    def _input(self, x):
+        return x.float().permute(0, 3, 1, 2)

@@ -1,13 +1,14 @@
-"""Plain PyTorch mel front-ends (the port of ``l3embedding_tpu/ops/frontend.py``).
+"""Plain PyTorch mel and linear front-ends (the port of ``l3embedding_tpu/ops/frontend.py``).
 
     waveform --frame (unfold)--> (B, T, n_dft) --matmul--> DFT re/im
              --square+add--> power --matmul--> mel --sqrt--> dB features
 
 These are tensor-op versions, run on whatever device their input lies
-on. The model's front end on the card is the hand-written kernel in
-``mel_kernel.py``; these functions are its references and the CPU
-path's building blocks. Waveforms are (B, n_samples) float32 in [-1, 1];
-outputs are (B, n_mels, n_frames, 1), the JAX package's NHWC layout.
+on. The model's front end on the card is a hand-written kernel
+(``mel_kernel.py``, ``spec_kernel.py``); these functions are its
+references and the CPU path's building blocks. Waveforms are (B, n_samples) float32 in [-1, 1];
+outputs are (B, n_mels or n_freq, n_frames, 1), the JAX package's NHWC
+layout.
 """
 
 from __future__ import annotations
@@ -122,16 +123,25 @@ def l3_log_norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=eps)) / 5.0
 
 
-def power_frames(x: torch.Tensor, cfg: MelConfig, dtype: torch.dtype) -> torch.Tensor:
-    """(B, n) → (B, T, n_freq) power spectrum with `dtype` operands."""
-    frames = as_operand(frame_signal(x.float(), cfg.n_dft, cfg.hop, cfg.padding), dtype)
-    real, imag = stft_basis_f32(cfg.n_dft)
+def power_frames(
+    x: torch.Tensor,
+    n_dft: int,
+    hop: int,
+    padding: str,
+    dtype: torch.dtype,
+    n_win: int | None = None,
+) -> torch.Tensor:
+    """(B, n) → (B, T, n_freq) power spectrum with `dtype` operands and a
+    Hann window of n_win samples (default n_dft) centred in the frame."""
+    frames = as_operand(frame_signal(x.float(), n_dft, hop, padding), dtype)
+    real, imag = stft_basis_f32(n_dft, n_win)
     re = frames @ as_operand(torch.from_numpy(real).to(x.device), dtype)
     im = frames @ as_operand(torch.from_numpy(imag).to(x.device), dtype)
     return re * re + im * im
 
 
-def to_nhwc_db(m: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+def to_nhwc_db(m: torch.Tensor, cfg: MelConfig | SpectrogramConfig) -> torch.Tensor:
+    """(B, T, F) frames-major → (B, F, T, 1), then dB when cfg.decibel."""
     m = m.transpose(1, 2)[..., None]
     if cfg.decibel:
         m = amplitude_to_db(m, per_sample=cfg.db_per_sample)
@@ -141,7 +151,7 @@ def to_nhwc_db(m: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
 def melspectrogram(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """(B, n) → (B, n_mels, T, 1), f32 throughout (the JAX f32
     HIGHEST-precision front end). Needs TF32 off on the card."""
-    p = power_frames(x, cfg, torch.float32)
+    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.float32)
     m = p @ torch.from_numpy(mel_matrix(cfg)).to(x.device)
     if cfg.power_melgram != 2.0:
         # dB is taken of the *amplitude* melgram when power_melgram is 1.
@@ -152,9 +162,26 @@ def melspectrogram(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tenso
 def melspectrogram_bf16(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """(B, n) → (B, n_mels, T, 1) with bf16 operands and f32 accumulation
     in both matmuls (the JAX package's fast XLA front end)."""
-    p = power_frames(x, cfg, torch.bfloat16)
+    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16)
     mel_t = as_operand(torch.from_numpy(mel_matrix(cfg)).to(x.device), torch.bfloat16)
     m = as_operand(p, torch.bfloat16) @ mel_t
     if cfg.power_melgram != 2.0:
         m = torch.sqrt(torch.clamp(m, min=0.0)) ** cfg.power_melgram
     return to_nhwc_db(m, cfg)
+
+
+def spectrogram(x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig()) -> torch.Tensor:
+    """(B, n) → (B, n_freq, T, 1) |STFT|^power, f32 throughout (the JAX f32
+    HIGHEST-precision front end); dB, when on, is of that |STFT|^power.
+    Needs TF32 off on the card."""
+    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.float32, cfg.n_win)
+    s = p ** (cfg.power / 2.0) if cfg.power != 2.0 else p
+    return to_nhwc_db(s, cfg)
+
+
+def spectrogram_bf16(x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig()) -> torch.Tensor:
+    """(B, n) → (B, n_freq, T, 1) |STFT|^power with bf16 operands and f32
+    accumulation (the JAX package's fast XLA front end)."""
+    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16, cfg.n_win)
+    s = p ** (cfg.power / 2.0) if cfg.power != 2.0 else p
+    return to_nhwc_db(s, cfg)

@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel ``l3embedding_tpu/ops/pallas_frontend.py::_mel_kernel``
 (driven there by ``melspectrogram_fused``). The CUDA source is
-``l3embedding_torch/csrc/mel_frontend.cu``; it is compiled with ``nvcc`` for
-``sm_90a`` into ``build/l3torch_kernels/`` at first use and bound with
+``l3embedding_torch/csrc/mel_frontend.cu`` (its DFT stage is
+``csrc/dft_stage.cuh``); ``cuda_build`` compiles it with ``nvcc`` for
+``sm_90a`` into ``build/l3torch_kernels/`` at first use and loads it with
 ctypes.
 
 What bounds it on an H100: at the main path's shape (B=64, 199 frames,
@@ -28,17 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
+from collections import Counter
 
 import numpy as np
 import torch
 
-from . import dsp_ref
+from . import cuda_build, dft_stage, dsp_ref
+from .dft_stage import AMIN, DYNAMIC_RANGE, FRAMES_PER_BLOCK
 from .frontend import (
     MelConfig,
     amplitude_to_db,
@@ -49,23 +46,10 @@ from .frontend import (
     to_nhwc_db,
 )
 
-# Launches of the CUDA kernel through melspectrogram_fused (one per call:
-# the mel kernel, plus its dB pass in the same call when decibel is on).
-LAUNCHES = 0
-
-# Frequency bins per chunk (FC in the source): the bases are zero-padded
-# to a multiple of it. Frames per block (TM) sizes the tile-max scratch.
-FREQ_CHUNK = 64
-FRAMES_PER_BLOCK = 64
-AMIN = 1e-10  # amplitude_to_db's defaults, which the plain version uses
-DYNAMIC_RANGE = 80.0
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "mel_frontend.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "l3torch_kernels"
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
+# Launches of the CUDA kernel through melspectrogram_fused, by operand type
+# ("bf16", "f32"): one per call (the mel kernel, plus its dB pass in the same
+# call when decibel is on). LAUNCHES.clear() resets them.
+LAUNCHES: Counter = Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,16 +58,10 @@ def padded_bases(sr, n_dft, n_mels, fmin, fmax, htk):
     the front end's bases zero-padded along the frequency axis to a
     FREQ_CHUNK multiple (the padded bins contribute nothing to the mel
     sum). Only the kernel's device layout uses them."""
-    real, imag = stft_basis_f32(n_dft)
+    w_re, w_im = dft_stage.pad_bins(*stft_basis_f32(n_dft))
+    melt = np.zeros((w_re.shape[1], n_mels), np.float32)
     mel_t = mel_matrix_f32(sr, n_dft, n_mels, fmin, fmax, htk)
-    n_freq = real.shape[1]
-    f_pad = _round_up(n_freq, FREQ_CHUNK)
-    w_re = np.zeros((n_dft, f_pad), np.float32)
-    w_im = np.zeros((n_dft, f_pad), np.float32)
-    melt = np.zeros((f_pad, n_mels), np.float32)
-    w_re[:, :n_freq] = real
-    w_im[:, :n_freq] = imag
-    melt[:n_freq] = mel_t
+    melt[: mel_t.shape[0]] = mel_t
     return w_re, w_im, melt
 
 
@@ -94,69 +72,19 @@ def _bases_key(cfg: MelConfig):
 @functools.lru_cache(maxsize=None)
 def _kernel_bases(key, dtype: torch.dtype, device: str):
     """Device copies in the kernel's layout: wt (n_chunks, 2·FC, n_dft) in
-    the operand type, each chunk's FC re rows then its FC im rows, and
-    melT (F_pad, n_mels) f32."""
+    the operand type (dft_stage.chunked) and melT (F_pad, n_mels) f32."""
     w_re, w_im, melt = padded_bases(*key)
-    n_dft, f_pad = w_re.shape
-    n_chunks = f_pad // FREQ_CHUNK
-    wt = np.concatenate(
-        [
-            w_re.T.reshape(n_chunks, FREQ_CHUNK, n_dft),
-            w_im.T.reshape(n_chunks, FREQ_CHUNK, n_dft),
-        ],
-        axis=1,
-    )
-    wt = torch.from_numpy(np.ascontiguousarray(wt)).to(device=device, dtype=dtype)
+    wt = torch.from_numpy(dft_stage.chunked(w_re, w_im)).to(device=device, dtype=dtype)
     return wt.contiguous(), torch.from_numpy(melt).to(device)
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the mel front-end kernel cannot be built")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source version) and return the .so path."""
-    src = _SOURCE.read_bytes()
-    lib = _BUILD_DIR / f"libmel_frontend_{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SOURCE),
-    ]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = cuda_build.load("mel_frontend")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.l3_mel_frontend.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
     lib.l3_mel_frontend.restype = i
-    lib.l3_mel_frames_per_block.restype = i
-    lib.l3_mel_bins_per_chunk.restype = i
-    if (lib.l3_mel_frames_per_block(), lib.l3_mel_bins_per_chunk()) != (
-        FRAMES_PER_BLOCK, FREQ_CHUNK,
-    ):
-        raise RuntimeError("mel_frontend.cu tile sizes disagree with mel_kernel.py")
+    dft_stage.check_tiles(lib, "l3_mel")
     return lib
 
 
@@ -170,7 +98,9 @@ def melspectrogram_fused_ref(
     cfg.db_per_sample is False). Needs TF32 off on the card.
     """
     _check_cfg(cfg)
-    p = power_frames(x, cfg, torch.bfloat16 if fast else torch.float32)
+    p = power_frames(
+        x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16 if fast else torch.float32
+    )
     m = p @ torch.from_numpy(mel_matrix(cfg)).to(x.device)
     return to_nhwc_db(torch.sqrt(torch.clamp(m, min=0.0)), cfg)
 
@@ -190,7 +120,6 @@ def melspectrogram_fused(
     takes the batch max with tensor ops. On a CPU tensor: the plain
     version.
     """
-    global LAUNCHES
     _check_cfg(cfg)
     if x.device.type == "cpu":
         return melspectrogram_fused_ref(x, cfg, fast)
@@ -222,7 +151,7 @@ def melspectrogram_fused(
         )
     if rc != 0:
         raise RuntimeError(f"mel front-end kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    LAUNCHES["bf16" if fast else "f32"] += 1
     out = out[..., None]
     if cfg.decibel and not cfg.db_per_sample:
         out = amplitude_to_db(out, AMIN, DYNAMIC_RANGE, per_sample=False)

@@ -1,0 +1,138 @@
+"""The linear-spectrogram front-end as a hand-written Hopper kernel, with
+its plain version.
+
+Replaces the TPU kernel ``l3embedding_tpu/ops/pallas_frontend.py::_spec_kernel``
+(driven there by ``spectrogram_fused``), the front end of cnn_L3_orig
+(amplitude, then the caller's ``l3_log_norm``), cnn_L3_kapredbinputbn (dB)
+and tiny_L3 (dB, n_dft 512, hop 240, a 480-sample window). The CUDA source
+is ``l3embedding_torch/csrc/spec_frontend.cu``, whose DFT stage
+(``csrc/dft_stage.cuh``) it shares with the mel kernel; ``cuda_build``
+compiles it with ``nvcc`` for ``sm_90a`` at first use.
+
+What bounds it on an H100: at the main path's shape (B=64, 197 frames,
+n_dft 512, 257 bins) the DFT is ~6.6 GFLOP against ~26 MB of PCM, bases
+and f32 output. With ``fast=True`` (bf16 operands on the tensor cores)
+it is bound by bytes, ~8 µs; with ``fast=False`` (f32 FMA) by operations,
+~0.1 ms.
+
+``spectrogram_fused`` takes a CUDA tensor to the kernel and a CPU tensor
+to ``spectrogram_fused_ref``, the tensor-op mirror of the same
+arithmetic. A CUDA tensor never falls back: a build or launch failure
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+
+import torch
+
+from . import cuda_build, dft_stage, dsp_ref
+from .dft_stage import AMIN, DYNAMIC_RANGE, FRAMES_PER_BLOCK
+from .frontend import SpectrogramConfig, amplitude_to_db, power_frames, stft_basis_f32, to_nhwc_db
+
+# Launches of the CUDA kernel through spectrogram_fused, by operand type
+# ("bf16", "f32"): one per call (the kernel, plus its dB pass in the same
+# call when per-sample dB is on). LAUNCHES.clear() resets them.
+LAUNCHES: Counter = Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_bases(n_dft: int, n_win: int | None, dtype: torch.dtype, device: str):
+    """The windowed DFT bases in the kernel's layout (dft_stage.chunked),
+    zero past n_freq, in the operand type on `device`."""
+    wt = dft_stage.chunked(*dft_stage.pad_bins(*stft_basis_f32(n_dft, n_win)))
+    return torch.from_numpy(wt).to(device=device, dtype=dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("spec_frontend")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.l3_spec_frontend.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, i, f, i, f, f, p]
+    lib.l3_spec_frontend.restype = i
+    dft_stage.check_tiles(lib, "l3_spec")
+    return lib
+
+
+def _check_cfg(cfg: SpectrogramConfig) -> None:
+    # The kernel reads each frame's bf16 pairs as aligned 32-bit words
+    # (hop even) and stages the bases in K tiles of 64 (bf16) or 32 (f32).
+    if cfg.hop % 2 or cfg.n_dft % 64:
+        raise ValueError(
+            f"spectrogram_fused: need an even hop and n_dft a multiple of 64, "
+            f"got hop {cfg.hop}, n_dft {cfg.n_dft}"
+        )
+
+
+def _power(p: torch.Tensor, power: float) -> torch.Tensor:
+    if power == 1.0:
+        return torch.sqrt(p)
+    if power == 2.0:
+        return p
+    return p ** (power / 2.0)
+
+
+def spectrogram_fused_ref(
+    x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig(), fast: bool = False
+) -> torch.Tensor:
+    """Plain tensor-op version of the kernel: (B, n) → (B, n_freq, T, 1).
+
+    Operands bf16 (fast) or f32, f32 accumulation, f32 power, then sqrt
+    (power 1), nothing (power 2) or ^(power/2), then dB when cfg.decibel
+    (per-sample, or batch-global when cfg.db_per_sample is False). Needs
+    TF32 off on the card.
+    """
+    _check_cfg(cfg)
+    dtype = torch.bfloat16 if fast else torch.float32
+    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, dtype, cfg.n_win)
+    return to_nhwc_db(_power(p, cfg.power), cfg)
+
+
+def spectrogram_fused(
+    x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig(), fast: bool = False
+) -> torch.Tensor:
+    """(B, n) f32 waveforms → (B, n_freq, T, 1) |STFT|^power (+ dB).
+
+    On a CUDA tensor: the hand-written kernel, bf16 operands (fast) or
+    f32. The batch-global dB mode runs the kernel in amplitude mode and
+    takes the batch max with tensor ops. On a CPU tensor: the plain
+    version.
+    """
+    _check_cfg(cfg)
+    if x.device.type == "cpu":
+        return spectrogram_fused_ref(x, cfg, fast)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectrogram_fused: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(
+            "spectrogram_fused: need a contiguous (B, n) float32 tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}"
+        )
+    batch, n = x.shape
+    n_frames = cfg.n_frames(n)
+    if n_frames < 1:
+        raise ValueError(f"spectrogram_fused: {n} samples give no frame of {cfg.n_dft}")
+    pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
+    wt = _kernel_bases(cfg.n_dft, cfg.n_win, torch.bfloat16 if fast else torch.float32, str(x.device))
+    decibel = cfg.decibel and cfg.db_per_sample
+    out = torch.empty((batch, cfg.n_freq, n_frames), device=x.device, dtype=torch.float32)
+    tile_max = torch.empty(
+        (batch, -(-n_frames // FRAMES_PER_BLOCK)), device=x.device, dtype=torch.float32
+    )
+    with torch.cuda.device(x.device):
+        rc = _library().l3_spec_frontend(
+            x.data_ptr(), batch, n, pad_left, wt.data_ptr(), out.data_ptr(),
+            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, cfg.n_freq,
+            wt.shape[0], int(fast), float(cfg.power), int(decibel), AMIN,
+            DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"spectrogram kernel launch failed: CUDA error {rc}")
+    LAUNCHES["bf16" if fast else "f32"] += 1
+    out = out[..., None]
+    if cfg.decibel and not cfg.db_per_sample:
+        out = amplitude_to_db(out, AMIN, DYNAMIC_RANGE, per_sample=False)
+    return out

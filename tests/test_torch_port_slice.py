@@ -8,6 +8,7 @@ and the same numpy audio goes through both packages on the CPU.
 import numpy as np
 import pytest
 import torch
+import torch.nn as nn
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +22,8 @@ from l3embedding_tpu.training.checkpoints import save_variables
 from l3embedding_torch import api as torch_api
 from l3embedding_torch.compat.from_jax import from_jax_variables
 from l3embedding_torch.embed.extract import EmbeddingExtractor, frame_uniform
-from l3embedding_torch.models.embedding import _pool_flatten, audio_embedding_fn
-from l3embedding_torch.models.registry import build_model
+from l3embedding_torch.models.embedding import AUDIO_POOLINGS, _pool_flatten, audio_embedding_fn
+from l3embedding_torch.models.registry import MODELS, build_model
 from l3embedding_torch.models.towers import L3AudioTower
 from l3embedding_torch.training.checkpoints import load_variables
 
@@ -203,14 +204,23 @@ def test_pool_flatten_same_padding_matches_flax(shape, pool):
 
 
 def test_unported_model_types_raise():
-    for name in ("cnn_L3_orig", "cnn_L3_kapredbinputbn", "tiny_L3"):
-        with pytest.raises(NotImplementedError):
-            build_model(name)
-    with pytest.raises(ValueError):
+    """The registry: a name outside the five reference types raises
+    ValueError (as does an unknown front end); all five build, with the
+    JAX registry's pooling tables and head widths."""
+    from l3embedding_tpu.models import MODELS as JAX_MODELS
+
+    with pytest.raises(ValueError, match="Invalid model type"):
         build_model("no_such_model")
-    for kind in ("linear", "linear_db"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            L3AudioTower(frontend_kind=kind)
+    with pytest.raises(ValueError, match="frontend_kind"):
+        L3AudioTower(frontend_kind="no_such_frontend")
+    assert set(MODELS) == set(JAX_MODELS)
+    for name, jax_spec in JAX_MODELS.items():
+        spec = build_model(name)
+        assert spec.audio_embedding_pooling == jax_spec.audio_embedding_pooling
+        assert AUDIO_POOLINGS[name] == jax_spec.audio_embedding_pooling
+        model = spec.module()
+        assert model.merge_dense.out_features == jax_spec.module().layer_size
+        assert isinstance(spec.audio_tower(), nn.Module)
     assert build_model("cnn_L3_melspec1").audio_embedding_pooling == {
         "original": (4, 8), "short": (16, 24)
     }
