@@ -1,11 +1,13 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds both
-front-end kernels (mel and linear spectrogram) from the sources in this
-checkout, one nvcc each and both at once, holds each against its plain
-PyTorch version, then drives the port's paths end to end through their
-user entry points: embedding extraction for all five model types
-(cnn_L3_melspec2 and cnn_L3_orig at full width in f32 and bf16), the AVC
-forward of all five at batch 8, get_audio_embedding and
-get_image_embedding, each against a CPU copy of the same weights.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the three
+kernel sources (mel and linear spectrogram front ends, block-1 conv and
+GEMM probe) from this checkout, one nvcc each and all at once, holds each
+of the four kernels against its plain PyTorch version, then drives the
+port's paths end to end through their user entry points: embedding
+extraction for all five model types (cnn_L3_melspec2 and cnn_L3_orig at
+full width in f32 and bf16), the AVC forward of all five at batch 8,
+get_audio_embedding and get_image_embedding, each against a CPU copy of
+the same weights, and the block-1 probe tool
+(``l3embedding_torch.tools.block1_spike all``) at batch 128.
 
     python3 chip_smoke.py
 
@@ -230,18 +232,144 @@ def phase_spec_kernel(dev):
     return results
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn: `iters` calls captured in one CUDA graph
+    and replayed between CUDA events, so that host launch gaps (a call
+    made of many short launches) do not count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def block1_bound_ms(flops: float, bytes_: float) -> tuple[float, str]:
+    """Least time for a block-1 kernel's work: its operations at the bf16
+    tensor-core peak or its bytes (each input read once, each output
+    written once) at the HBM rate, whichever is larger."""
+    ops_s, bytes_s = flops / PEAK_BF16_TC, bytes_ / PEAK_HBM
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
+def library_gemm(a, w, s, b, reps):
+    """cuBLAS: `reps` torch.matmul calls summed in f32, then ·s + b and ReLU
+    → bf16: the GEMM probe's yardstick, timed only here."""
+    acc = torch.zeros(a.shape[0], w.shape[1], device=a.device)
+    for _ in range(reps):
+        acc.add_(torch.matmul(a, w))
+    return torch.relu_(acc.mul_(s).add_(b)).to(torch.bfloat16)
+
+
+def block1_gate(what: str, got: torch.Tensor, want: torch.Tensor, rel_gate: float = 1e-2,
+                cos_gate: float = 0.99999) -> float:
+    """max |Δ| / max |ref| ≤ rel_gate and flattened cosine ≥ cos_gate (a
+    kernel: 1e-2 and 0.99999; a yardstick, which rounds to bf16 before the
+    epilogue, is only checked loosely); returns max |Δ|."""
+    g, w = got.double().flatten(), want.double().flatten()
+    max_abs = (g - w).abs().max().item()
+    rel = max_abs / w.abs().max().item()
+    cos = (g @ w / (g.norm() * w.norm())).item()
+    log(f"{what}: max |d| {max_abs:.6g}, max |d|/max|ref| {rel:.3e} (<= {rel_gate}), "
+        f"cosine {cos:.9f} (>= {cos_gate})")
+    if not (rel <= rel_gate and cos >= cos_gate):
+        raise SystemExit(f"{what}: disagrees")
+    return max_abs
+
+
+def phase_block1(dev):
+    """The block-1 probe kernels against their plain versions: the GEMM
+    probe at N = 64 and 128 (reps 64), the fused conv+BN+ReLU at the vision
+    conv1_2 shape (128, 224, 224, 64) and the linear types' audio conv1_2
+    shape (128, 257, 197, 64); times beside cuBLAS / cuDNN and the bound.
+    Then the main path: the probe tool's `all` at batch 128."""
+    from l3embedding_torch.ops import block1_kernel as bk
+    from l3embedding_torch.tools import block1_spike
+
+    results = {}
+    reps = 64
+    for n_out in (64, 128):
+        a, w, s, b = block1_spike.gemm_operands(n_out, torch.device(dev))
+        what = f"block1_gemm N={n_out} reps={reps} (3584x576)"
+        max_abs = block1_gate(what, bk.gemm_probe(a, w, s, b, reps), bk.gemm_probe_ref(a, w, s, b, reps))
+        block1_gate(f"{what} cuBLAS yardstick", library_gemm(a, w, s, b, reps),
+                    bk.gemm_probe_ref(a, w, s, b, reps), rel_gate=0.05, cos_gate=0.9999)
+        ms = graph_ms(lambda: bk.gemm_probe(a, w, s, b, reps))
+        plain_ms = cuda_ms(lambda: bk.gemm_probe_ref(a, w, s, b, reps), iters=3, warmup=1)
+        library_ms = graph_ms(lambda: library_gemm(a, w, s, b, reps))
+        m, k = a.shape
+        bound_ms, bound_by = block1_bound_ms(2.0 * m * k * n_out * reps, (m * k + k * n_out + m * n_out) * 2 + 2 * n_out * 4)
+        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuBLAS matmul x{reps} + "
+            f"epilogue) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); device times "
+            f"from CUDA-graph replay except plain")
+        if n_out == 64:
+            results["block1_gemm"] = {True: dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                 bound_ms=bound_ms, bound_by=bound_by)}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape_name, (batch, h, wd) in (("vision", (128, 224, 224)), ("audio", (128, 257, 197))):
+        x = (torch.randn(batch, h, wd, 64, device=dev, generator=gen) * 0.1).to(torch.bfloat16)
+        wt = (torch.randn(576, 64, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+        scale = torch.rand(64, device=dev, generator=gen) + 0.5
+        shift = torch.randn(64, device=dev, generator=gen) * 0.1
+        w_cl = wt.reshape(3, 3, 64, 64).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        what = f"block1_conv {shape_name} conv1_2 ({batch}, {h}, {wd}, 64)"
+        want = bk.conv3x3_bn_relu_ref(x, wt, scale, shift)
+        max_abs = block1_gate(what, bk.conv3x3_bn_relu(x, wt, scale, shift), want)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, allow_tf32=False):
+            block1_gate(f"{what} cuDNN yardstick", block1_spike.cudnn_conv_bn_relu(x, w_cl, scale, shift),
+                        want, rel_gate=0.05, cos_gate=0.9999)
+            del want
+            library_ms = cuda_ms(lambda: block1_spike.cudnn_conv_bn_relu(x, w_cl, scale, shift))
+            conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1))
+        ms = cuda_ms(lambda: bk.conv3x3_bn_relu(x, wt, scale, shift))
+        plain_ms = cuda_ms(lambda: bk.conv3x3_bn_relu_ref(x, wt, scale, shift), iters=3, warmup=1)
+        n_px = batch * h * wd
+        bound_ms, bound_by = block1_bound_ms(2.0 * n_px * 576 * 64, 2 * n_px * 64 * 2 + 576 * 64 * 2 + 2 * 64 * 4)
+        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuDNN bf16 channels-last "
+            f"conv + epilogue) {library_ms:.4f} ms (conv alone {conv_ms:.4f} ms), bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if shape_name == "vision":
+            results["block1_conv"] = {True: dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                 bound_ms=bound_ms, bound_by=bound_by)}
+        del x
+        torch.cuda.empty_cache()
+
+    variants, counts = main_path(lambda: block1_spike.main(["all", "--batch", "128", "--steps", "5"]))
+    log(f"block1_spike all --batch 128: launches {dict(counts)}")
+    fused = variants[-1]
+    if counts["block1_gemm_bf16"] < 1 or counts["block1_conv_bf16"] < 1 or not fused["rel_err"] <= 1e-2:
+        raise SystemExit("the block-1 probe tool did not run its kernels or its check failed")
+    torch.cuda.empty_cache()
+    return results
+
+
 def main_path(fn):
     """Run one main-path call with every kernel count at 0 just before it;
     add the counts read just after to MAIN_PATH_LAUNCHES and return
     (result, counts)."""
-    from l3embedding_torch.ops import mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, mel_kernel, spec_kernel
 
     mel_kernel.LAUNCHES.clear()
     spec_kernel.LAUNCHES.clear()
+    block1_kernel.LAUNCHES.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = Counter({f"mel_frontend_{k}": v for k, v in mel_kernel.LAUNCHES.items()})
     counts.update({f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()})
+    counts.update({f"{k}_bf16": v for k, v in block1_kernel.LAUNCHES.items()})
     MAIN_PATH_LAUNCHES.update(counts)
     return out, counts
 
@@ -410,21 +538,27 @@ def phase_profile(dev):
 
 def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
-    from l3embedding_torch.ops import cuda_build, mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, cuda_build, mel_kernel, spec_kernel
 
     t0 = time.perf_counter()
-    names = ("mel_frontend", "spec_frontend")
+    names = ("mel_frontend", "spec_frontend", "block1_conv")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, lib in zip(names, pool.map(lambda n: cuda_build.build(n, verbose=True), names)):
             log(f"built {name}: {lib.name}")
     mel_kernel._library()
     spec_kernel._library()
+    block1_kernel._library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
 
+# name → (source, TPU kernel it replaces, operand types: True = bf16, False = f32)
 KERNELS = {
-    "mel_frontend": ("l3embedding_torch/csrc/mel_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:81"),
-    "spec_frontend": ("l3embedding_torch/csrc/spec_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:183"),
+    "mel_frontend": ("l3embedding_torch/csrc/mel_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:81",
+                     (True, False)),
+    "spec_frontend": ("l3embedding_torch/csrc/spec_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:183",
+                      (True, False)),
+    "block1_gemm": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:115", (True,)),
+    "block1_conv": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:150", (True,)),
 }
 
 
@@ -444,15 +578,16 @@ def main() -> int:
     t_start = time.perf_counter()
 
     build_kernels()
-    measured = {"mel_frontend": phase_kernel(dev), "spec_frontend": phase_spec_kernel(dev)}
+    measured = {"mel_frontend": phase_kernel(dev), "spec_frontend": phase_spec_kernel(dev),
+                **phase_block1(dev)}
     phase_slice(dev)
     phase_avc(dev)
     phase_image(dev)
     phase_profile(dev)
 
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
-        for fast in (True, False):
+    for name, (src, replaces, modes) in KERNELS.items():
+        for fast in modes:
             key = f"{name}_{'bf16' if fast else 'f32'}"
             if MAIN_PATH_LAUNCHES[key] < 1:
                 raise SystemExit(f"{key} was not launched on the main paths")

@@ -6,7 +6,9 @@ tower's own subtree), and returns a state dict:
 
   * ``from_jax_variables(variables, model_type)`` → the audio tower's;
   * ``vision_from_jax_variables(variables, model_type)`` → the vision tower's;
-  * ``avc_from_jax_variables(variables, model_type)`` → the whole AVCModel's.
+  * ``avc_from_jax_variables(variables, model_type)`` → the whole AVCModel's;
+  * ``block1_conv_from_jax(w_hwio, scale, shift)`` → the block-1 probe
+    kernel's operands (not a state dict).
 
 Naming follows flax's auto-names. In a full tower ``ConvBNRelu_{i}/{Conv_0,
 BatchNorm_0}`` are the blocks and ``{audio,vision}_embedding_layer`` the
@@ -104,3 +106,20 @@ def avc_from_jax_variables(variables_np: dict, model_type: str) -> dict:
     sd.update(_dense(p["merge_dense"], "merge_dense"))
     sd.update(_dense(p["output_dense"], "output_dense"))
     return sd
+
+
+def block1_conv_from_jax(w_hwio, scale, shift) -> dict:
+    """A 3×3 64 → 64 HWIO conv kernel and its BN scale and shift (numpy, as
+    ``tools/pallas_block1_spike.py`` makes them) → the port's block-1
+    operands: ``w`` (576, 64) bf16 with rows in (dy, dx, ci) order (the
+    kernel's layout, which ``ops.block1_kernel`` takes), ``w_oihw`` (64, 64,
+    3, 3) bf16 (the cuDNN yardstick's), ``scale`` and ``shift`` (64,) f32."""
+    w = np.asarray(w_hwio, np.float32)
+    if w.shape != (3, 3, 64, 64):
+        raise ValueError(f"block1_conv_from_jax: need a (3, 3, 64, 64) HWIO kernel, got {w.shape}")
+    return {
+        "w": _t(w.reshape(576, 64)).to(torch.bfloat16),
+        "w_oihw": _t(w.transpose(3, 2, 0, 1)).to(torch.bfloat16),
+        "scale": _t(np.reshape(scale, 64)),
+        "shift": _t(np.reshape(shift, 64)),
+    }
