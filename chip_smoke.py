@@ -70,24 +70,49 @@ def row_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1) + 1e-30)
 
 
-def mel_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str]:
-    """Least time for the function at these shapes: the DFT and mel products
-    at their type's peak, or the bytes it must move (PCM in, bases in,
-    features out) at the HBM rate, whichever is larger. In bf16 the DFT runs
-    on the tensor cores and the f32 mel product on the FP32 pipes, units
-    that work at the same time, so the larger of the two counts; in f32 both
-    share the FP32 pipes and their times add."""
+def fft_frame_flops(n_dft: int) -> float:
+    """Operations the f32 kernels' real FFT runs on one frame, as
+    csrc/fft_stage.cuh schedules it (a multiply or an add counts one): the
+    window (n_dft products); the complex FFT of M = n_dft/2 points, whose
+    first pass has no twiddles (radix 2 when log2 M is odd: 4 per
+    butterfly; else radix 4: 16) and whose later radix-4 passes take three
+    twiddle products a butterfly (34); the real post-pass with the power,
+    24 per pair of bins (k, M − k), k = 1…M/2, and 4 for bins 0 and M."""
+    m = n_dft // 2
+    log2m = m.bit_length() - 1
+    if log2m % 2:
+        first, later = 4 * (m // 2), (log2m - 1) // 2
+    else:
+        first, later = 16 * (m // 4), log2m // 2 - 1
+    return float(n_dft + first + later * 34 * (m // 4) + 24 * (m // 2) + 4)
+
+
+def mel_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str, str]:
+    """Least time for the function at these shapes, with the count of the
+    algorithm that runs: the operations at their unit's peak or the bytes it
+    must move (PCM and tables in, features out) at the HBM rate, whichever is
+    larger. bf16 counts the DFT product (tensor cores) and the dense f32 mel
+    product (FP32 pipes), units that work at the same time, so the larger of
+    the two; f32 counts the real FFT and the sparse mel sum (2 per CSR
+    weight), both on the FP32 pipes."""
+    from l3embedding_torch.ops import fft_stage
+
     t = cfg.n_frames(n)
     n_freq = cfg.n_dft // 2 + 1
-    dft_flops = 2.0 * batch * t * cfg.n_dft * 2 * n_freq
-    mel_flops = 2.0 * batch * t * n_freq * cfg.n_mels
+    mel_t_bytes = n_freq * cfg.n_mels * 4
     if fast:
+        dft_flops = 2.0 * batch * t * cfg.n_dft * 2 * n_freq
+        mel_flops = 2.0 * batch * t * n_freq * cfg.n_mels
         ops_s = max(dft_flops / PEAK_BF16_TC, mel_flops / PEAK_FP32)
+        table_bytes, count = 2 * cfg.n_dft * n_freq * 2 + mel_t_bytes, "bf16 DFT product + dense mel"
     else:
-        ops_s = (dft_flops + mel_flops) / PEAK_FP32
-    basis_bytes = 2 * cfg.n_dft * n_freq * (2 if fast else 4) + n_freq * cfg.n_mels * 4
-    bytes_ = batch * n * 4 + basis_bytes + batch * cfg.n_mels * t * 4
-    return max(ops_s, bytes_ / PEAK_HBM) * 1e3, ("operations" if ops_s * PEAK_HBM > bytes_ else "bytes")
+        ptr, lo, w = fft_stage.mel_csr(cfg.sr, cfg.n_dft, cfg.n_mels, cfg.fmin, cfg.fmax, cfg.htk)
+        ops_s = batch * t * (fft_frame_flops(cfg.n_dft) + 2.0 * w.size) / PEAK_FP32
+        table_bytes = 2 * cfg.n_dft * 4 + cfg.n_dft * 4 + ptr.nbytes + lo.nbytes + w.nbytes
+        count = "f32 real FFT + sparse mel"
+    bytes_ = batch * n * 4 + table_bytes + batch * cfg.n_mels * t * 4
+    bound_by = "operations" if ops_s * PEAK_HBM > bytes_ else "bytes"
+    return max(ops_s, bytes_ / PEAK_HBM) * 1e3, bound_by, count
 
 
 def library_melspec(x, cfg, window, mel_t):
@@ -142,27 +167,38 @@ def phase_kernel(dev):
         ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=fast))
         plain_ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused_ref(x, cfg, fast=fast), iters=5)
         library_ms = cuda_ms(lambda: library_melspec(x, cfg, window, mel_t))
-        bound_ms, bound_by = mel_bound_ms(BATCH, 48000, cfg, fast)
+        kernel_graph_ms = graph_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=fast))
+        library_graph_ms = graph_ms(lambda: library_melspec(x, cfg, window, mel_t))
+        bound_ms, bound_by, count = mel_bound_ms(BATCH, 48000, cfg, fast)
         mode = "bf16" if fast else "f32"
-        log(f"mel_frontend {mode} B={BATCH} n_mels=256: kernel {ms:.4f} ms")
+        log(f"mel_frontend {mode} B={BATCH} n_mels=256: kernel {ms:.4f} ms per call back to back "
+            f"(CUDA events); {kernel_graph_ms:.4f} ms in CUDA-graph replay")
         log(f"mel_frontend {mode} B={BATCH} n_mels=256: plain {plain_ms:.4f} ms")
-        log(f"mel_frontend {mode} B={BATCH} n_mels=256: library (torch.stft+matmul+dB) {library_ms:.4f} ms")
-        log(f"mel_frontend {mode} B={BATCH} n_mels=256: bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"mel_frontend {mode} B={BATCH} n_mels=256: library (torch.stft+matmul+dB) {library_ms:.4f} ms "
+            f"(CUDA events); {library_graph_ms:.4f} ms in graph replay")
+        log(f"mel_frontend {mode} B={BATCH} n_mels=256: bound {bound_ms:.4f} ms ({bound_by}; count: {count})")
         results[fast].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by, graph_ms=kernel_graph_ms,
+                             library_graph_ms=library_graph_ms)
     return results
 
 
-def spec_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str]:
-    """Least time for the linear front end at these shapes: the DFT product
-    at its operand type's peak (bf16 tensor cores, or the FP32 pipes), or
-    the bytes it must move (PCM in, bases in, |STFT| out) at the HBM rate,
-    whichever is larger."""
+def spec_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str, str]:
+    """Least time for the linear front end at these shapes, with the count
+    of the algorithm that runs: the operations at their unit's peak (bf16:
+    the DFT product on the tensor cores; f32: the real FFT on the FP32 pipes)
+    or the bytes it must move (PCM and tables in, |STFT| out) at the HBM
+    rate, whichever is larger."""
     t = cfg.n_frames(n)
-    ops = 2.0 * batch * t * cfg.n_dft * 2 * cfg.n_freq
-    ops_s = ops / (PEAK_BF16_TC if fast else PEAK_FP32)
-    bytes_ = batch * n * 4 + 2 * cfg.n_dft * cfg.n_freq * (2 if fast else 4) + batch * cfg.n_freq * t * 4
-    return max(ops_s, bytes_ / PEAK_HBM) * 1e3, ("operations" if ops_s * PEAK_HBM > bytes_ else "bytes")
+    if fast:
+        ops_s = 2.0 * batch * t * cfg.n_dft * 2 * cfg.n_freq / PEAK_BF16_TC
+        table_bytes, count = 2 * cfg.n_dft * cfg.n_freq * 2, "bf16 DFT product"
+    else:
+        ops_s = batch * t * fft_frame_flops(cfg.n_dft) / PEAK_FP32
+        table_bytes, count = 2 * cfg.n_dft * 4 + cfg.n_dft * 4, "f32 real FFT"
+    bytes_ = batch * n * 4 + table_bytes + batch * cfg.n_freq * t * 4
+    bound_by = "operations" if ops_s * PEAK_HBM > bytes_ else "bytes"
+    return max(ops_s, bytes_ / PEAK_HBM) * 1e3, bound_by, count
 
 
 def library_spec(x, cfg, window):
@@ -221,14 +257,19 @@ def phase_spec_kernel(dev):
         ms = cuda_ms(lambda: spec_kernel.spectrogram_fused(x, cfg, fast=fast))
         plain_ms = cuda_ms(lambda: spec_kernel.spectrogram_fused_ref(x, cfg, fast=fast), iters=5)
         library_ms = cuda_ms(lambda: library_spec(x, cfg, window))
-        bound_ms, bound_by = spec_bound_ms(BATCH, 48000, cfg, fast)
+        kernel_graph_ms = graph_ms(lambda: spec_kernel.spectrogram_fused(x, cfg, fast=fast))
+        library_graph_ms = graph_ms(lambda: library_spec(x, cfg, window))
+        bound_ms, bound_by, count = spec_bound_ms(BATCH, 48000, cfg, fast)
         mode = "bf16" if fast else "f32"
-        log(f"spec_frontend {mode} B={BATCH} orig (257x197): kernel {ms:.4f} ms")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): kernel {ms:.4f} ms per call back to back "
+            f"(CUDA events, the wrapper's host time included); {kernel_graph_ms:.4f} ms in CUDA-graph replay")
         log(f"spec_frontend {mode} B={BATCH} orig (257x197): plain {plain_ms:.4f} ms")
-        log(f"spec_frontend {mode} B={BATCH} orig (257x197): library (torch.stft+abs) {library_ms:.4f} ms")
-        log(f"spec_frontend {mode} B={BATCH} orig (257x197): bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): library (torch.stft+abs) {library_ms:.4f} ms "
+            f"(CUDA events); {library_graph_ms:.4f} ms in graph replay")
+        log(f"spec_frontend {mode} B={BATCH} orig (257x197): bound {bound_ms:.4f} ms ({bound_by}; count: {count})")
         results[fast].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by, graph_ms=kernel_graph_ms,
+                             library_graph_ms=library_graph_ms)
     return results
 
 

@@ -1,6 +1,6 @@
-"""Python side of ``csrc/dft_stage.cuh``, the DFT stage both front-end
-kernels share: its tile sizes, and the device layout of the DFT bases it
-reads."""
+"""Python side of ``csrc/dft_stage.cuh``, the DFT-product stage of both
+front-end kernels' bf16 mode: its tile sizes, and the device layout of the
+DFT bases it reads. (The f32 mode's FFT is ``fft_stage.py``.)"""
 
 from __future__ import annotations
 

@@ -28,21 +28,28 @@ def periodic_hann(n: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
 
 
+def centred_hann(n_dft: int, n_win: int | None = None) -> np.ndarray:
+    """The periodic Hann window of n_win samples (default n_dft) centred
+    in an n_dft-sample frame, zero outside it; float64."""
+    if n_win is None:
+        n_win = n_dft
+    window = np.zeros(n_dft)
+    lpad = (n_dft - n_win) // 2
+    window[lpad:lpad + n_win] = periodic_hann(n_win)
+    return window
+
+
 def stft_basis(n_dft: int, n_win: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Windowed DFT bases (real, imag), each (n_dft, n_dft//2 + 1).
 
     For a frame x: re = x @ real, im = x @ imag. The Hann window of
     length n_win (default n_dft) is centred in the n_dft-sample frame.
     """
-    if n_win is None:
-        n_win = n_dft
     n_freq = n_dft // 2 + 1
     t = np.arange(n_dft)[:, None]
     k = np.arange(n_freq)[None, :]
     angle = 2.0 * np.pi * t * k / n_dft
-    window = np.zeros(n_dft)
-    lpad = (n_dft - n_win) // 2
-    window[lpad:lpad + n_win] = periodic_hann(n_win)
+    window = centred_hann(n_dft, n_win)
     real = np.cos(angle) * window[:, None]
     imag = -np.sin(angle) * window[:, None]
     return real, imag

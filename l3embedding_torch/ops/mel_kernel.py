@@ -2,27 +2,30 @@
 
 Replaces the TPU kernel ``l3embedding_tpu/ops/pallas_frontend.py::_mel_kernel``
 (driven there by ``melspectrogram_fused``). The CUDA source is
-``l3embedding_torch/csrc/mel_frontend.cu`` (its DFT stage is
-``csrc/dft_stage.cuh``); ``cuda_build`` compiles it with ``nvcc`` for
-``sm_90a`` into ``build/l3torch_kernels/`` at first use and loads it with
-ctypes.
+``l3embedding_torch/csrc/mel_frontend.cu``; ``cuda_build`` compiles it with
+``nvcc`` for ``sm_90a`` into ``build/l3torch_kernels/`` at first use and
+loads it with ctypes. It has two modes, at the main path's shape (B=64,
+199 frames, n_dft 2048, 1025 bins, 256 mels):
 
-What bounds it on an H100: at the main path's shape (B=64, 199 frames,
-n_dft 2048, 1025 bins, 256 mels) the DFT stage is ~107 GFLOP and the mel
-stage ~6.7 GFLOP, against ~35 MB (bf16) or ~43 MB (f32) of PCM, bases and
-output, so it is bound by operations. With ``fast=True`` the DFT runs on
-the bf16 tensor cores (989 TFLOP/s) and the f32 mel product on the FP32
-pipes (~67 TFLOP/s); these units work at the same time, so the bound is
-the larger of the two, ~0.108 ms. With ``fast=False`` both stages share
-the FP32 pipes and their times add: ~1.7 ms.
-The design (one block per frame tile and sample, waveform span staged once
-in shared memory, mel sum in registers, a second pass for the per-sample
-dB max) is described in the source.
+* ``fast=True``, the TPU kernel's numerics: the windowed DFT as a product
+  with the DFT bases on the bf16 tensor cores (``csrc/dft_stage.cuh``,
+  ~107 GFLOP at 989 TFLOP/s) and a dense f32 mel product on the FP32 pipes
+  (~6.7 GFLOP at ~67 TFLOP/s). These units work at the same time, so the
+  bound is the larger, ~0.108 ms: bound by operations.
+* ``fast=False``, the f32 parity configuration: a real FFT of each frame in
+  shared memory (``csrc/fft_stage.cuh``, tables from ``fft_stage.py``) and
+  the mel sum over each filter's nonzero bins only (CSR rows). ~0.73 GFLOP
+  in all, ~0.0109 ms at 67 TFLOP/s, against ~25 MB of PCM and output
+  (~0.0076 ms): bound by operations.
+
+Both stage the waveform span of a block's frames once in shared memory and
+take the per-sample dB max in a second pass; the source describes the
+design.
 
 ``melspectrogram_fused`` takes a CUDA tensor to the kernel and a CPU tensor
 to ``melspectrogram_fused_ref``, the tensor-op mirror of the same
-arithmetic. A CUDA tensor never falls back: a build or launch failure
-raises.
+function. A CUDA tensor never falls back: a build or launch failure, or an
+n_dft that the f32 kernel's FFT does not take, raises.
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from . import cuda_build, dft_stage, dsp_ref
-from .dft_stage import AMIN, DYNAMIC_RANGE, FRAMES_PER_BLOCK
+from . import cuda_build, dft_stage, dsp_ref, fft_stage
+from .dft_stage import AMIN, DYNAMIC_RANGE
 from .frontend import (
     MelConfig,
     amplitude_to_db,
@@ -57,7 +60,7 @@ def padded_bases(sr, n_dft, n_mels, fmin, fmax, htk):
     """(W_re, W_im) of shape (n_dft, F_pad) and melT (F_pad, n_mels), f32:
     the front end's bases zero-padded along the frequency axis to a
     FREQ_CHUNK multiple (the padded bins contribute nothing to the mel
-    sum). Only the kernel's device layout uses them."""
+    sum). Only the bf16 kernel's device layout uses them."""
     w_re, w_im = dft_stage.pad_bins(*stft_basis_f32(n_dft))
     melt = np.zeros((w_re.shape[1], n_mels), np.float32)
     mel_t = mel_matrix_f32(sr, n_dft, n_mels, fmin, fmax, htk)
@@ -70,11 +73,11 @@ def _bases_key(cfg: MelConfig):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bases(key, dtype: torch.dtype, device: str):
-    """Device copies in the kernel's layout: wt (n_chunks, 2·FC, n_dft) in
-    the operand type (dft_stage.chunked) and melT (F_pad, n_mels) f32."""
+def _kernel_bases(key, device: str):
+    """Device copies in the bf16 kernel's layout: wt (n_chunks, 2·FC,
+    n_dft) bf16 (dft_stage.chunked) and melT (F_pad, n_mels) f32."""
     w_re, w_im, melt = padded_bases(*key)
-    wt = torch.from_numpy(dft_stage.chunked(w_re, w_im)).to(device=device, dtype=dtype)
+    wt = torch.from_numpy(dft_stage.chunked(w_re, w_im)).to(device=device, dtype=torch.bfloat16)
     return wt.contiguous(), torch.from_numpy(melt).to(device)
 
 
@@ -82,9 +85,11 @@ def _kernel_bases(key, dtype: torch.dtype, device: str):
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("mel_frontend")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.l3_mel_frontend.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
-    lib.l3_mel_frontend.restype = i
+    lib.l3_mel_frontend_bf16.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i, f, f, p]
+    lib.l3_mel_frontend_f32.argtypes = [p, i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, f, f, p]
+    lib.l3_mel_frontend_bf16.restype = lib.l3_mel_frontend_f32.restype = i
     dft_stage.check_tiles(lib, "l3_mel")
+    fft_stage.check_tiles(lib, "l3_mel")
     return lib
 
 
@@ -115,8 +120,8 @@ def melspectrogram_fused(
 ) -> torch.Tensor:
     """(B, n) f32 waveforms → (B, n_mels, T, 1) mel features.
 
-    On a CUDA tensor: the hand-written kernel, bf16 operands (fast) or
-    f32. The batch-global dB mode runs the kernel in amplitude mode and
+    On a CUDA tensor: the hand-written kernel, bf16 DFT product (fast) or
+    f32 FFT. The batch-global dB mode runs the kernel in amplitude mode and
     takes the batch max with tensor ops. On a CPU tensor: the plain
     version.
     """
@@ -132,22 +137,31 @@ def melspectrogram_fused(
         )
     if cfg.n_mels not in (128, 256):
         raise ValueError(f"melspectrogram_fused: n_mels must be 128 or 256, got {cfg.n_mels}")
+    if not fast:
+        fft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
     batch, n = x.shape
     n_frames = cfg.n_frames(n)
     pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
-    dtype = torch.bfloat16 if fast else torch.float32
-    wt, melt = _kernel_bases(_bases_key(cfg), dtype, str(x.device))
     decibel = cfg.decibel and cfg.db_per_sample
+    # The tables come first: a first call allocates them, and the order of
+    # the allocations decides where `out` lies in device memory.
+    if fast:
+        wt, melt = _kernel_bases(_bases_key(cfg), str(x.device))
+        entry, tables, sizes = "l3_mel_frontend_bf16", (wt, melt), (wt.shape[0],)
+    else:
+        tables = fft_stage.device_tables(cfg.n_dft, None, str(x.device))
+        tables += fft_stage.device_mel_csr(_bases_key(cfg), str(x.device))
+        entry, sizes = "l3_mel_frontend_f32", ()
+    frames_per_block = dft_stage.FRAMES_PER_BLOCK if fast else fft_stage.FRAMES_PER_BLOCK
     out = torch.empty((batch, cfg.n_mels, n_frames), device=x.device, dtype=torch.float32)
     tile_max = torch.empty(
-        (batch, -(-n_frames // FRAMES_PER_BLOCK)), device=x.device, dtype=torch.float32
+        (batch, -(-n_frames // frames_per_block)), device=x.device, dtype=torch.float32
     )
     with torch.cuda.device(x.device):
-        rc = _library().l3_mel_frontend(
-            x.data_ptr(), batch, n, pad_left, wt.data_ptr(), melt.data_ptr(),
-            out.data_ptr(), tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames,
-            wt.shape[0], cfg.n_mels, int(fast), int(decibel), AMIN, DYNAMIC_RANGE,
-            torch.cuda.current_stream(x.device).cuda_stream,
+        rc = getattr(_library(), entry)(
+            x.data_ptr(), batch, n, pad_left, *(t.data_ptr() for t in tables), out.data_ptr(),
+            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, *sizes, cfg.n_mels,
+            int(decibel), AMIN, DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"mel front-end kernel launch failed: CUDA error {rc}")

@@ -5,20 +5,23 @@ Replaces the TPU kernel ``l3embedding_tpu/ops/pallas_frontend.py::_spec_kernel``
 (driven there by ``spectrogram_fused``), the front end of cnn_L3_orig
 (amplitude, then the caller's ``l3_log_norm``), cnn_L3_kapredbinputbn (dB)
 and tiny_L3 (dB, n_dft 512, hop 240, a 480-sample window). The CUDA source
-is ``l3embedding_torch/csrc/spec_frontend.cu``, whose DFT stage
-(``csrc/dft_stage.cuh``) it shares with the mel kernel; ``cuda_build``
-compiles it with ``nvcc`` for ``sm_90a`` at first use.
+is ``l3embedding_torch/csrc/spec_frontend.cu``, which shares its stages
+with the mel kernel; ``cuda_build`` compiles it with ``nvcc`` for
+``sm_90a`` at first use. At the main path's shape (B=64, 197 frames,
+n_dft 512, 257 bins) both modes are bound by bytes (~25 MB of PCM and f32
+output, ~7.5 µs):
 
-What bounds it on an H100: at the main path's shape (B=64, 197 frames,
-n_dft 512, 257 bins) the DFT is ~6.6 GFLOP against ~26 MB of PCM, bases
-and f32 output. With ``fast=True`` (bf16 operands on the tensor cores)
-it is bound by bytes, ~8 µs; with ``fast=False`` (f32 FMA) by operations,
-~0.1 ms.
+* ``fast=True``: the windowed DFT as a product with the bases on the bf16
+  tensor cores (``csrc/dft_stage.cuh``; ~6.6 GFLOP, ~7 µs at 989
+  TFLOP/s), the TPU kernel's numerics;
+* ``fast=False``: a real FFT of each frame in shared memory
+  (``csrc/fft_stage.cuh``, tables from ``fft_stage.py``; ~0.14 GFLOP,
+  ~2.1 µs at 67 TFLOP/s), the f32 parity configuration.
 
 ``spectrogram_fused`` takes a CUDA tensor to the kernel and a CPU tensor
-to ``spectrogram_fused_ref``, the tensor-op mirror of the same
-arithmetic. A CUDA tensor never falls back: a build or launch failure
-raises.
+to ``spectrogram_fused_ref``, the tensor-op mirror of the same function.
+A CUDA tensor never falls back: a build or launch failure, or an n_dft
+that the f32 kernel's FFT does not take, raises.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from collections import Counter
 
 import torch
 
-from . import cuda_build, dft_stage, dsp_ref
-from .dft_stage import AMIN, DYNAMIC_RANGE, FRAMES_PER_BLOCK
+from . import cuda_build, dft_stage, dsp_ref, fft_stage
+from .dft_stage import AMIN, DYNAMIC_RANGE
 from .frontend import SpectrogramConfig, amplitude_to_db, power_frames, stft_basis_f32, to_nhwc_db
 
 # Launches of the CUDA kernel through spectrogram_fused, by operand type
@@ -40,26 +43,28 @@ LAUNCHES: Counter = Counter()
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bases(n_dft: int, n_win: int | None, dtype: torch.dtype, device: str):
-    """The windowed DFT bases in the kernel's layout (dft_stage.chunked),
-    zero past n_freq, in the operand type on `device`."""
+def _kernel_bases(n_dft: int, n_win: int | None, device: str):
+    """The windowed DFT bases in the bf16 kernel's layout
+    (dft_stage.chunked), zero past n_freq, bf16 on `device`."""
     wt = dft_stage.chunked(*dft_stage.pad_bins(*stft_basis_f32(n_dft, n_win)))
-    return torch.from_numpy(wt).to(device=device, dtype=dtype).contiguous()
+    return torch.from_numpy(wt).to(device=device, dtype=torch.bfloat16).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("spec_frontend")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.l3_spec_frontend.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, i, f, i, f, f, p]
-    lib.l3_spec_frontend.restype = i
+    lib.l3_spec_frontend_bf16.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, f, i, f, f, p]
+    lib.l3_spec_frontend_f32.argtypes = [p, i, i, i, p, p, p, p, i, i, i, f, i, f, f, p]
+    lib.l3_spec_frontend_bf16.restype = lib.l3_spec_frontend_f32.restype = i
     dft_stage.check_tiles(lib, "l3_spec")
+    fft_stage.check_tiles(lib, "l3_spec")
     return lib
 
 
 def _check_cfg(cfg: SpectrogramConfig) -> None:
-    # The kernel reads each frame's bf16 pairs as aligned 32-bit words
-    # (hop even) and stages the bases in K tiles of 64 (bf16) or 32 (f32).
+    # The kernel reads each frame's sample pairs as aligned words (hop even)
+    # and, in bf16, stages the bases in K tiles of 64.
     if cfg.hop % 2 or cfg.n_dft % 64:
         raise ValueError(
             f"spectrogram_fused: need an even hop and n_dft a multiple of 64, "
@@ -96,8 +101,8 @@ def spectrogram_fused(
 ) -> torch.Tensor:
     """(B, n) f32 waveforms → (B, n_freq, T, 1) |STFT|^power (+ dB).
 
-    On a CUDA tensor: the hand-written kernel, bf16 operands (fast) or
-    f32. The batch-global dB mode runs the kernel in amplitude mode and
+    On a CUDA tensor: the hand-written kernel, bf16 DFT product (fast) or
+    f32 FFT. The batch-global dB mode runs the kernel in amplitude mode and
     takes the batch max with tensor ops. On a CPU tensor: the plain
     version.
     """
@@ -115,19 +120,28 @@ def spectrogram_fused(
     n_frames = cfg.n_frames(n)
     if n_frames < 1:
         raise ValueError(f"spectrogram_fused: {n} samples give no frame of {cfg.n_dft}")
+    if not fast:
+        fft_stage.check_n_dft(cfg.n_dft, "spectrogram_fused")
     pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
-    wt = _kernel_bases(cfg.n_dft, cfg.n_win, torch.bfloat16 if fast else torch.float32, str(x.device))
     decibel = cfg.decibel and cfg.db_per_sample
+    # The tables come first: a first call allocates them, and the order of
+    # the allocations decides where `out` lies in device memory.
+    if fast:
+        wt = _kernel_bases(cfg.n_dft, cfg.n_win, str(x.device))
+        entry, tables, sizes = "l3_spec_frontend_bf16", (wt,), (cfg.n_freq, wt.shape[0])
+    else:
+        tables = fft_stage.device_tables(cfg.n_dft, cfg.n_win, str(x.device))
+        entry, sizes = "l3_spec_frontend_f32", ()
+    frames_per_block = dft_stage.FRAMES_PER_BLOCK if fast else fft_stage.FRAMES_PER_BLOCK
     out = torch.empty((batch, cfg.n_freq, n_frames), device=x.device, dtype=torch.float32)
     tile_max = torch.empty(
-        (batch, -(-n_frames // FRAMES_PER_BLOCK)), device=x.device, dtype=torch.float32
+        (batch, -(-n_frames // frames_per_block)), device=x.device, dtype=torch.float32
     )
     with torch.cuda.device(x.device):
-        rc = _library().l3_spec_frontend(
-            x.data_ptr(), batch, n, pad_left, wt.data_ptr(), out.data_ptr(),
-            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, cfg.n_freq,
-            wt.shape[0], int(fast), float(cfg.power), int(decibel), AMIN,
-            DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
+        rc = getattr(_library(), entry)(
+            x.data_ptr(), batch, n, pad_left, *(t.data_ptr() for t in tables), out.data_ptr(),
+            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, *sizes, float(cfg.power),
+            int(decibel), AMIN, DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"spectrogram kernel launch failed: CUDA error {rc}")

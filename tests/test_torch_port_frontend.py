@@ -173,20 +173,64 @@ def test_wrapper_checks_its_input():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [48000, 47999])
+@pytest.mark.parametrize("decibel", [True, False])
+@pytest.mark.parametrize("n_mels", [256, 128])
 @pytest.mark.parametrize("fast", [False, True])
-def test_cuda_kernel_matches_plain_version(fast, monkeypatch):
-    """On the card: the CUDA kernel vs its plain version (bf16: cosine >
-    0.9999, mean |Δ| < 0.1 dB; f32: > 0.999999, < 0.01 dB)."""
+def test_cuda_kernel_matches_plain_version(fast, n_mels, decibel, n, monkeypatch):
+    """On the card: the CUDA kernel vs its plain version at both widths,
+    dB on and off, on clips with a silent stretch, of even and odd length
+    (bf16: cosine > 0.9999, mean |Δ| < 0.1 dB; f32: > 0.999999, < 0.01 dB;
+    the amplitude compared after the same per-sample dB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    x = torch.from_numpy(_pcm(5, batch=4)).cuda()
-    cfg = tfe.MelConfig(n_mels=256)
+    pcm = _pcm(5, batch=4)[:, :n].copy()
+    pcm[1, 10000:30000] = 0.0
+    x = torch.from_numpy(pcm).cuda()
+    cfg = tfe.MelConfig(n_mels=n_mels, decibel=decibel)
     mel_kernel.LAUNCHES.clear()
     got = mel_kernel.melspectrogram_fused(x, cfg, fast=fast).cpu().numpy()
     assert mel_kernel.LAUNCHES["bf16" if fast else "f32"] == 1
     want = mel_kernel.melspectrogram_fused_ref(x, cfg, fast=fast).cpu().numpy()
+    assert got.shape == want.shape == (4, n_mels, cfg.n_frames(n), 1)
+    if not decibel:
+        got = jdsp.amplitude_to_db(got, sample_axes=(1, 2))
+        want = jdsp.amplitude_to_db(want, sample_axes=(1, 2))
     _gate(got, want, 0.9999 if fast else 0.999999, 0.1 if fast else 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dft", [64, 128, 256, 512, 1024])
+def test_cuda_f32_kernel_at_every_fft_size(n_dft, monkeypatch):
+    """On the card: the f32 kernel vs its plain version at the frame sizes
+    its FFT is built for besides the mel types' 2048 (the test above); 64,
+    256 and 1024 take the radix-2 first pass (log2 of n_dft/2 odd). 128
+    mels, dB, a silent stretch (cosine > 0.999999, mean |Δ| < 0.01 dB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    pcm = _pcm(7, batch=4)
+    pcm[1, 10000:30000] = 0.0
+    x = torch.from_numpy(pcm).cuda()
+    cfg = tfe.MelConfig(n_dft=n_dft, n_mels=128)
+    mel_kernel.LAUNCHES.clear()
+    got = mel_kernel.melspectrogram_fused(x, cfg, fast=False).cpu().numpy()
+    assert mel_kernel.LAUNCHES["f32"] == 1
+    want = mel_kernel.melspectrogram_fused_ref(x, cfg, fast=False).cpu().numpy()
+    assert got.shape == want.shape == (4, 128, cfg.n_frames(48000), 1)
+    _gate(got, want, 0.999999, 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_kernel_rejects_an_n_dft_its_fft_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.zeros(2, 48000, device="cuda")
+    mel_kernel.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="power of two"):
+        mel_kernel.melspectrogram_fused(x, tfe.MelConfig(n_dft=1000), fast=False)
+    assert not mel_kernel.LAUNCHES
 
 
 FORBIDDEN = ("jax", "flax", "optax", "l3embedding_tpu")
@@ -208,3 +252,26 @@ def _imports(path: pathlib.Path):
 def test_port_imports_nothing_of_jax(path):
     bad = [m for m in _imports(REPO / path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_ab_tool_keys_sass_by_name_without_the_namespace_hash(monkeypatch):
+    """frontend_ab hashes each kernel function's SASS under its name with
+    the per-source hash of the anonymous namespace dropped, so a kernel of
+    two versions of a source is found under one name, and only a change of
+    its code changes its hash."""
+    from l3embedding_torch.tools import frontend_ab
+
+    def dump(ns, body):
+        head = f"\t\tFunction : _ZN48_GLOBAL__N__{ns}_15_mel_frontend_cu_8d09368313"
+        return f"{head}kernel_aEv\n{body}\n{head}kernel_bEv\n        /*0000*/ EXIT ;\n"
+
+    def hashes(text):
+        monkeypatch.setattr(frontend_ab.subprocess, "run",
+                            lambda *a, **k: type("Proc", (), {"stdout": text})())
+        return frontend_ab._sass_hashes("lib.so")
+
+    a = hashes(dump("ebbc2795", "        /*0000*/ FADD R0, R1, R2 ;"))
+    b = hashes(dump("058b4dd6", "        /*0000*/ FADD R0, R1, R2 ;"))
+    c = hashes(dump("058b4dd6", "        /*0000*/ FMUL R0, R1, R2 ;"))
+    assert len(a) == 2 and a == b
+    assert sorted(a) == sorted(c) and [a[k] == c[k] for k in sorted(a)] == [False, True]

@@ -183,37 +183,83 @@ def test_wrapper_checks_its_input():
 
 
 def test_build_name_hashes_source_and_headers(tmp_path, monkeypatch):
-    """Both kernel sources include the shared DFT stage, and the built
-    library's name changes when that header does, so an edited header
-    never loads a stale library."""
+    """Both kernel sources include the two stages (the bf16 DFT product and
+    the f32 FFT) and the header those share, and the built library's name
+    changes when any of the headers does, so an edited header never loads
+    a stale library."""
+    headers = ["fft_stage.cuh", "frontend_common.cuh", "dft_stage.cuh"]
     for name in ("mel_frontend", "spec_frontend"):
         files = [p.name for p in cuda_build.source_files(cuda_build.CSRC / f"{name}.cu")]
-        assert files == [f"{name}.cu", "dft_stage.cuh"]
+        assert files == [f"{name}.cu"] + headers
     for path in cuda_build.source_files(cuda_build.CSRC / "spec_frontend.cu"):
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
-    before = cuda_build.library_path("spec_frontend")
-    assert before.name.startswith("libspec_frontend_") and before.suffix == ".so"
-    header = tmp_path / "dft_stage.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    assert cuda_build.library_path("spec_frontend") != before
+    names = {cuda_build.library_path("spec_frontend")}
+    assert all(n.name.startswith("libspec_frontend_") and n.suffix == ".so" for n in names)
+    for header in headers:
+        path = tmp_path / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        names.add(cuda_build.library_path("spec_frontend"))
+    assert len(names) == 1 + len(headers)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [48000, 47999])
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_cuda_kernel_matches_plain_version(name, fast, monkeypatch):
-    """On the card: the CUDA kernel vs its plain version (bf16: cosine >
+@pytest.mark.parametrize(
+    "name,per_sample",
+    [("orig", True), ("kapredbinputbn", True), ("kapredbinputbn", False), ("tiny", True), ("tiny", False)],
+)
+def test_cuda_kernel_matches_plain_version(name, per_sample, fast, n, monkeypatch):
+    """On the card: the CUDA kernel vs its plain version in every
+    configuration chip_smoke.py checks (per-sample and batch-global dB), on
+    clips with a silent stretch, of even and odd length (bf16: cosine >
     0.9999, mean |Δ| < 0.1 dB; f32: > 0.999999, < 0.01 dB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    x = torch.from_numpy(_pcm(11, batch=4)).cuda()
-    tcfg, _ = _cfgs(name)
+    pcm = _pcm(11, batch=4)[:, :n].copy()
+    pcm[1, 10000:30000] = 0.0
+    x = torch.from_numpy(pcm).cuda()
+    tcfg, _ = _cfgs(name, **({} if per_sample else {"db_per_sample": False}))
     spec_kernel.LAUNCHES.clear()
     got = spec_kernel.spectrogram_fused(x, tcfg, fast=fast).cpu().numpy()
     assert spec_kernel.LAUNCHES["bf16" if fast else "f32"] == 1
     want = spec_kernel.spectrogram_fused_ref(x, tcfg, fast=fast).cpu().numpy()
+    assert got.shape == want.shape == (4, 257, tcfg.n_frames(n), 1)
     if not tcfg.decibel:
         got, want = _db(got), _db(want)
     _gate(got, want, 0.9999 if fast else 0.999999, 0.1 if fast else 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dft", [64, 128, 256, 1024, 2048])
+def test_cuda_f32_kernel_at_every_fft_size(n_dft, monkeypatch):
+    """On the card: the f32 kernel vs its plain version at the frame sizes
+    its FFT is built for besides the model types' 512 (the test above); 64,
+    256 and 1024 take the radix-2 first pass (log2 of n_dft/2 odd). dB, a
+    silent stretch (cosine > 0.999999, mean |Δ| < 0.01 dB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    pcm = _pcm(13, batch=4)
+    pcm[1, 10000:30000] = 0.0
+    x = torch.from_numpy(pcm).cuda()
+    tcfg = tfe.SpectrogramConfig(n_dft=n_dft, decibel=True)
+    spec_kernel.LAUNCHES.clear()
+    got = spec_kernel.spectrogram_fused(x, tcfg, fast=False).cpu().numpy()
+    assert spec_kernel.LAUNCHES["f32"] == 1
+    want = spec_kernel.spectrogram_fused_ref(x, tcfg, fast=False).cpu().numpy()
+    assert got.shape == want.shape == (4, n_dft // 2 + 1, tcfg.n_frames(48000), 1)
+    _gate(got, want, 0.999999, 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_kernel_rejects_an_n_dft_its_fft_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.zeros(2, 48000, device="cuda")
+    spec_kernel.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="power of two"):
+        spec_kernel.spectrogram_fused(x, tfe.SpectrogramConfig(n_dft=576), fast=False)
+    assert not spec_kernel.LAUNCHES
