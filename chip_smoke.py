@@ -65,6 +65,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time to issue one call of fn (no synchronisation inside the
+    timed loop): the wrapper's own cost per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def row_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.flatten(1).double(), b.flatten(1).double()
     return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1) + 1e-30)
@@ -91,23 +104,23 @@ def mel_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str, str]:
     """Least time for the function at these shapes, with the count of the
     algorithm that runs: the operations at their unit's peak or the bytes it
     must move (PCM and tables in, features out) at the HBM rate, whichever is
-    larger. bf16 counts the DFT product (tensor cores) and the dense f32 mel
-    product (FP32 pipes), units that work at the same time, so the larger of
-    the two; f32 counts the real FFT and the sparse mel sum (2 per CSR
-    weight), both on the FP32 pipes."""
-    from l3embedding_torch.ops import fft_stage
+    larger. bf16 counts the DFT product over the kernel's n_dft basis
+    columns (tensor cores) and the sparse mel sum, 2 per CSR weight (FP32
+    pipes), units that work at the same time, so the larger of the two; f32
+    counts the real FFT and the sparse mel sum, both on the FP32 pipes."""
+    from l3embedding_torch.ops import dft_stage, fft_stage
 
     t = cfg.n_frames(n)
-    n_freq = cfg.n_dft // 2 + 1
-    mel_t_bytes = n_freq * cfg.n_mels * 4
+    ptr, lo, w = fft_stage.mel_csr(cfg.sr, cfg.n_dft, cfg.n_mels, cfg.fmin, cfg.fmax, cfg.htk)
+    mel_flops = batch * t * 2.0 * w.size
     if fast:
-        dft_flops = 2.0 * batch * t * cfg.n_dft * 2 * n_freq
-        mel_flops = 2.0 * batch * t * n_freq * cfg.n_mels
+        seg_ptr, segs = dft_stage.mel_segments(ptr, lo, cfg.n_dft)
+        dft_flops = 2.0 * batch * t * cfg.n_dft * cfg.n_dft
         ops_s = max(dft_flops / PEAK_BF16_TC, mel_flops / PEAK_FP32)
-        table_bytes, count = 2 * cfg.n_dft * n_freq * 2 + mel_t_bytes, "bf16 DFT product + dense mel"
+        table_bytes = cfg.n_dft * cfg.n_dft * 2 + seg_ptr.nbytes + segs.nbytes + w.nbytes
+        count = "bf16 DFT product over n_dft columns + sparse mel"
     else:
-        ptr, lo, w = fft_stage.mel_csr(cfg.sr, cfg.n_dft, cfg.n_mels, cfg.fmin, cfg.fmax, cfg.htk)
-        ops_s = batch * t * (fft_frame_flops(cfg.n_dft) + 2.0 * w.size) / PEAK_FP32
+        ops_s = (batch * t * fft_frame_flops(cfg.n_dft) + mel_flops) / PEAK_FP32
         table_bytes = 2 * cfg.n_dft * 4 + cfg.n_dft * 4 + ptr.nbytes + lo.nbytes + w.nbytes
         count = "f32 real FFT + sparse mel"
     bytes_ = batch * n * 4 + table_bytes + batch * cfg.n_mels * t * 4
@@ -128,6 +141,18 @@ def library_melspec(x, cfg, window, mel_t):
     return amplitude_to_db(torch.sqrt(m).transpose(1, 2)[..., None])
 
 
+def check_block_shapes(dev, n_frames: int) -> None:
+    """The bf16 kernels take 128 frames a block at B = 64 and 64 at the AVC
+    forward's B = 8 (dft_stage.frames_per_block), so that the checks at
+    those two batches cover both block shapes the sources build."""
+    from l3embedding_torch.ops import dft_stage
+
+    shapes = {b: dft_stage.frames_per_block(b, n_frames, str(torch.device(dev))) for b in (BATCH, AVC_BATCH)}
+    log(f"bf16 frames per block at {n_frames} frames: {shapes}")
+    if shapes != {BATCH: 128, AVC_BATCH: 64}:
+        raise SystemExit(f"expected 128 frames a block at B={BATCH} and 64 at B={AVC_BATCH}, got {shapes}")
+
+
 def phase_kernel(dev):
     from l3embedding_torch.ops import dsp_ref, mel_kernel
     from l3embedding_torch.ops.frontend import MelConfig, amplitude_to_db, mel_matrix_f32
@@ -135,28 +160,32 @@ def phase_kernel(dev):
     rng = np.random.RandomState(0)
     pcm = (rng.randn(BATCH, 48000) * 0.3 * rng.uniform(0.01, 1.0, (BATCH, 1))).astype(np.float32)
     x = torch.from_numpy(pcm).to(dev)
+    x8 = x[:AVC_BATCH].contiguous()
+    check_block_shapes(dev, 199)
     results = {}
     for fast in (True, False):
         cos_gate, db_gate = (0.9999, 0.1) if fast else (0.999999, 0.01)
-        for n_mels in (256, 128):
-            for decibel in (True, False):
-                cfg = MelConfig(n_mels=n_mels, decibel=decibel)
-                got = mel_kernel.melspectrogram_fused(x, cfg, fast=fast)
-                want = mel_kernel.melspectrogram_fused_ref(x, cfg, fast=fast)
-                torch.cuda.synchronize()
-                assert got.shape == want.shape == (BATCH, n_mels, 199, 1), got.shape
-                assert torch.isfinite(got).all()
-                cos = row_cosines(got, want).min().item()
-                gd, wd = (got, want) if decibel else (amplitude_to_db(got), amplitude_to_db(want))
-                mean_db = (gd - wd).abs().mean().item()
-                max_abs = (got - want).abs().max().item()
-                log(f"kernel fast={fast} n_mels={n_mels} decibel={decibel}: "
-                    f"min cosine {cos:.9f} (> {cos_gate}), mean |d| {mean_db:.6f} dB "
-                    f"(< {db_gate}), max |d| {max_abs:.6g}")
-                if not (cos > cos_gate and mean_db < db_gate):
-                    raise SystemExit(f"kernel disagrees with its plain version (fast={fast})")
-                if n_mels == 256 and decibel:
-                    results[fast] = {"max_abs_err": max_abs}
+        for xb in (x, x8):  # B = 64 and the AVC forward's B = 8 (another bf16 block shape)
+            batch = xb.shape[0]
+            for n_mels in (256, 128):
+                for decibel in (True, False):
+                    cfg = MelConfig(n_mels=n_mels, decibel=decibel)
+                    got = mel_kernel.melspectrogram_fused(xb, cfg, fast=fast)
+                    want = mel_kernel.melspectrogram_fused_ref(xb, cfg, fast=fast)
+                    torch.cuda.synchronize()
+                    assert got.shape == want.shape == (batch, n_mels, 199, 1), got.shape
+                    assert torch.isfinite(got).all()
+                    cos = row_cosines(got, want).min().item()
+                    gd, wd = (got, want) if decibel else (amplitude_to_db(got), amplitude_to_db(want))
+                    mean_db = (gd - wd).abs().mean().item()
+                    max_abs = (got - want).abs().max().item()
+                    log(f"kernel fast={fast} B={batch} n_mels={n_mels} decibel={decibel}: "
+                        f"min cosine {cos:.9f} (> {cos_gate}), mean |d| {mean_db:.6f} dB "
+                        f"(< {db_gate}), max |d| {max_abs:.6g}")
+                    if not (cos > cos_gate and mean_db < db_gate):
+                        raise SystemExit(f"kernel disagrees with its plain version (fast={fast}, B={batch})")
+                    if batch == BATCH and n_mels == 256 and decibel:
+                        results[fast] = {"max_abs_err": max_abs}
 
         cfg = MelConfig(n_mels=256)
         window = torch.from_numpy(dsp_ref.periodic_hann(cfg.n_dft).astype(np.float32)).to(dev)
@@ -169,30 +198,37 @@ def phase_kernel(dev):
         library_ms = cuda_ms(lambda: library_melspec(x, cfg, window, mel_t))
         kernel_graph_ms = graph_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=fast))
         library_graph_ms = graph_ms(lambda: library_melspec(x, cfg, window, mel_t))
+        wrapper_ms = host_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=fast))
+        b8_ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused(x8, cfg, fast=fast))
+        b8_graph_ms = graph_ms(lambda: mel_kernel.melspectrogram_fused(x8, cfg, fast=fast))
         bound_ms, bound_by, count = mel_bound_ms(BATCH, 48000, cfg, fast)
         mode = "bf16" if fast else "f32"
         log(f"mel_frontend {mode} B={BATCH} n_mels=256: kernel {ms:.4f} ms per call back to back "
-            f"(CUDA events); {kernel_graph_ms:.4f} ms in CUDA-graph replay")
+            f"(CUDA events); {kernel_graph_ms:.4f} ms in CUDA-graph replay; wrapper host time "
+            f"{wrapper_ms:.4f} ms a call")
+        log(f"mel_frontend {mode} B={AVC_BATCH} n_mels=256: kernel {b8_ms:.4f} ms (CUDA events); "
+            f"{b8_graph_ms:.4f} ms in graph replay")
         log(f"mel_frontend {mode} B={BATCH} n_mels=256: plain {plain_ms:.4f} ms")
         log(f"mel_frontend {mode} B={BATCH} n_mels=256: library (torch.stft+matmul+dB) {library_ms:.4f} ms "
             f"(CUDA events); {library_graph_ms:.4f} ms in graph replay")
         log(f"mel_frontend {mode} B={BATCH} n_mels=256: bound {bound_ms:.4f} ms ({bound_by}; count: {count})")
         results[fast].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by, graph_ms=kernel_graph_ms,
-                             library_graph_ms=library_graph_ms)
+                             library_graph_ms=library_graph_ms, host_ms=wrapper_ms,
+                             b8_ms=b8_ms, b8_graph_ms=b8_graph_ms)
     return results
 
 
 def spec_bound_ms(batch, n, cfg, fast: bool) -> tuple[float, str, str]:
     """Least time for the linear front end at these shapes, with the count
     of the algorithm that runs: the operations at their unit's peak (bf16:
-    the DFT product on the tensor cores; f32: the real FFT on the FP32 pipes)
-    or the bytes it must move (PCM and tables in, |STFT| out) at the HBM
-    rate, whichever is larger."""
+    the DFT product over the kernel's n_dft basis columns on the tensor
+    cores; f32: the real FFT on the FP32 pipes) or the bytes it must move
+    (PCM and tables in, |STFT| out) at the HBM rate, whichever is larger."""
     t = cfg.n_frames(n)
     if fast:
-        ops_s = 2.0 * batch * t * cfg.n_dft * 2 * cfg.n_freq / PEAK_BF16_TC
-        table_bytes, count = 2 * cfg.n_dft * cfg.n_freq * 2, "bf16 DFT product"
+        ops_s = 2.0 * batch * t * cfg.n_dft * cfg.n_dft / PEAK_BF16_TC
+        table_bytes, count = cfg.n_dft * cfg.n_dft * 2, "bf16 DFT product over n_dft columns"
     else:
         ops_s = batch * t * fft_frame_flops(cfg.n_dft) / PEAK_FP32
         table_bytes, count = 2 * cfg.n_dft * 4 + cfg.n_dft * 4, "f32 real FFT"
@@ -221,6 +257,8 @@ def phase_spec_kernel(dev):
     pcm = (rng.randn(BATCH, 48000) * 0.3 * rng.uniform(0.01, 1.0, (BATCH, 1))).astype(np.float32)
     pcm[1, 10000:30000] = 0.0  # a silent stretch: bins at the amin floor
     x = torch.from_numpy(pcm).to(dev)
+    x8 = x[:AVC_BATCH].contiguous()
+    check_block_shapes(dev, 197)
     tiny = dict(n_dft=512, hop=240, n_win=480)
     cases = [
         ("orig", SpectrogramConfig()),
@@ -232,22 +270,24 @@ def phase_spec_kernel(dev):
     results = {}
     for fast in (True, False):
         cos_gate, db_gate = (0.9999, 0.1) if fast else (0.999999, 0.01)
-        for name, cfg in cases:
-            got = spec_kernel.spectrogram_fused(x, cfg, fast=fast)
-            want = spec_kernel.spectrogram_fused_ref(x, cfg, fast=fast)
-            torch.cuda.synchronize()
-            assert got.shape == want.shape == (BATCH, 257, cfg.n_frames(48000), 1), got.shape
-            assert torch.isfinite(got).all()
-            cos = row_cosines(got, want).min().item()
-            gd, wd = (got, want) if cfg.decibel else (amplitude_to_db(got), amplitude_to_db(want))
-            mean_db = (gd - wd).abs().mean().item()
-            max_abs = (got - want).abs().max().item()
-            log(f"spec kernel fast={fast} {name}: min cosine {cos:.9f} (> {cos_gate}), "
-                f"mean |d| {mean_db:.6f} dB (< {db_gate}), max |d| {max_abs:.6g}")
-            if not (cos > cos_gate and mean_db < db_gate):
-                raise SystemExit(f"spec kernel disagrees with its plain version (fast={fast}, {name})")
-            if name == "orig":
-                results[fast] = {"max_abs_err": max_abs}
+        for xb in (x, x8):  # B = 64 and the AVC forward's B = 8 (another bf16 block shape)
+            batch = xb.shape[0]
+            for name, cfg in cases:
+                got = spec_kernel.spectrogram_fused(xb, cfg, fast=fast)
+                want = spec_kernel.spectrogram_fused_ref(xb, cfg, fast=fast)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape == (batch, 257, cfg.n_frames(48000), 1), got.shape
+                assert torch.isfinite(got).all()
+                cos = row_cosines(got, want).min().item()
+                gd, wd = (got, want) if cfg.decibel else (amplitude_to_db(got), amplitude_to_db(want))
+                mean_db = (gd - wd).abs().mean().item()
+                max_abs = (got - want).abs().max().item()
+                log(f"spec kernel fast={fast} B={batch} {name}: min cosine {cos:.9f} (> {cos_gate}), "
+                    f"mean |d| {mean_db:.6f} dB (< {db_gate}), max |d| {max_abs:.6g}")
+                if not (cos > cos_gate and mean_db < db_gate):
+                    raise SystemExit(f"spec kernel disagrees with its plain version (fast={fast}, B={batch}, {name})")
+                if batch == BATCH and name == "orig":
+                    results[fast] = {"max_abs_err": max_abs}
 
         cfg = SpectrogramConfig()
         window = torch.from_numpy(dsp_ref.periodic_hann(cfg.n_dft).astype(np.float32)).to(dev)
@@ -259,17 +299,24 @@ def phase_spec_kernel(dev):
         library_ms = cuda_ms(lambda: library_spec(x, cfg, window))
         kernel_graph_ms = graph_ms(lambda: spec_kernel.spectrogram_fused(x, cfg, fast=fast))
         library_graph_ms = graph_ms(lambda: library_spec(x, cfg, window))
+        wrapper_ms = host_ms(lambda: spec_kernel.spectrogram_fused(x, cfg, fast=fast))
+        b8_ms = cuda_ms(lambda: spec_kernel.spectrogram_fused(x8, cfg, fast=fast))
+        b8_graph_ms = graph_ms(lambda: spec_kernel.spectrogram_fused(x8, cfg, fast=fast))
         bound_ms, bound_by, count = spec_bound_ms(BATCH, 48000, cfg, fast)
         mode = "bf16" if fast else "f32"
         log(f"spec_frontend {mode} B={BATCH} orig (257x197): kernel {ms:.4f} ms per call back to back "
-            f"(CUDA events, the wrapper's host time included); {kernel_graph_ms:.4f} ms in CUDA-graph replay")
+            f"(CUDA events, the wrapper's host time included); {kernel_graph_ms:.4f} ms in CUDA-graph "
+            f"replay; wrapper host time {wrapper_ms:.4f} ms a call")
+        log(f"spec_frontend {mode} B={AVC_BATCH} orig (257x197): kernel {b8_ms:.4f} ms (CUDA events); "
+            f"{b8_graph_ms:.4f} ms in graph replay")
         log(f"spec_frontend {mode} B={BATCH} orig (257x197): plain {plain_ms:.4f} ms")
         log(f"spec_frontend {mode} B={BATCH} orig (257x197): library (torch.stft+abs) {library_ms:.4f} ms "
             f"(CUDA events); {library_graph_ms:.4f} ms in graph replay")
         log(f"spec_frontend {mode} B={BATCH} orig (257x197): bound {bound_ms:.4f} ms ({bound_by}; count: {count})")
         results[fast].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by, graph_ms=kernel_graph_ms,
-                             library_graph_ms=library_graph_ms)
+                             library_graph_ms=library_graph_ms, host_ms=wrapper_ms,
+                             b8_ms=b8_ms, b8_graph_ms=b8_graph_ms)
     return results
 
 

@@ -28,15 +28,15 @@ __device__ __forceinline__ void store_operand(__nv_bfloat16* p, float v) {
 }
 
 // The waveform span of frames [t0, t0+FRAMES) of one sample, zero outside
-// [0, n): the padding, applied on load. The caller orders these stores
-// before any read with a barrier.
-template <int FRAMES, typename T>
+// [0, n): the padding, applied on load, by the block's NT threads. The
+// caller orders these stores before any read with a barrier.
+template <int FRAMES, typename T, int NT = THREADS>
 __device__ __forceinline__ void stage_span(const float* __restrict__ xb, int n,
                                            int pad_left, int t0, int n_dft,
                                            int hop, T* seg, int tid) {
   const int seg_len = (FRAMES - 1) * hop + n_dft;
   const long start = (long)t0 * hop - pad_left;
-  for (int i = tid; i < seg_len; i += THREADS) {
+  for (int i = tid; i < seg_len; i += NT) {
     const long s = start + i;
     store_operand(seg + i, (s >= 0 && s < n) ? __ldg(xb + s) : 0.f);
   }
@@ -55,6 +55,24 @@ __device__ __forceinline__ void block_max(float vmax, float* dst, int tid) {
     for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, red[w]);
     *dst = m;
   }
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `smem` bytes where the
+// current device's limit is below it. cudaFuncSetAttribute applies to the
+// current device only, so each launcher keeps the size set per device
+// ordinal in its own static `set` and calls the runtime once per device and
+// size, not on every launch.
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+inline int raise_smem_limit(Kernel kernel, size_t smem, size_t (&set)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem <= set[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) set[dev] = smem;
+  return (int)err;
 }
 
 // out[b] ← max(out[b] − max_tiles(tile_max[b]), −dynamic_range).

@@ -8,10 +8,11 @@
 //
 //   * bf16 (fast; the TPU kernel's numerics): the windowed DFT as a product
 //     with the DFT bases, bf16 operands and f32 accumulation on the tensor
-//     cores (dft_stage.cuh), then a dense f32 mel product. At the main path's
-//     shape (B=64, T=199, n_dft=2048, 1025 bins, 256 mels) that is ~107 GFLOP
-//     of DFT and ~6.7 GFLOP of mel against ~36 MB of PCM, bases and output:
-//     bound by operations, ~0.108 ms.
+//     cores (wgmma, bases through a ring of bulk copies: dft_stage.cuh),
+//     then the mel sum over each filter's nonzero bins only. At the main
+//     path's shape (B=64, T=199, n_dft=2048: exactly 2048 basis columns,
+//     256 mels) that is ~107 GFLOP of DFT and ~52 MFLOP of mel against
+//     ~36 MB of PCM, bases and output: bound by operations, ~0.108 ms.
 //   * f32 (the parity configuration): a real FFT per frame in shared memory
 //     (fft_stage.cuh), then the mel sum over each filter's nonzero bins only
 //     (CSR rows: 2,032 weights of the 262,400 at 256 mels). That is ~57 kflop
@@ -24,8 +25,14 @@
 //   * one block per (tile of frames, sample); frames are never materialised:
 //     the block stages the waveform span its frames cover into shared memory
 //     once, applying the TF-SAME zero padding as it loads;
-//   * bf16: a loop inside the block walks the frequency chunks and keeps the
-//     (TM × n_mels) mel sum in registers;
+//   * bf16: 128 frames per block (two consumer warpgroups reading each
+//     basis stage, so the bases cross L2 once per 128 frames: ~1.1 GB at
+//     B=64), or 64 where the wrapper finds the grid small enough that the
+//     per-block run of stages sets the time (dft_stage.frames_per_block);
+//     a loop inside the block walks the 64-bin chunks, forms the
+//     power in registers, stages it in shared memory and sums the filter
+//     segments of the chunk, a filter cut by the chunk edge carrying its
+//     partial sum into the next chunk (no filter spans more than two);
 //   * f32: each warp takes a frame at a time through the FFT into a power row
 //     in its buffer, then its lanes take the filters; the (n_mels × frames)
 //     tile is staged in shared memory so the stores into (B, n_mels, T) run
@@ -39,89 +46,93 @@
 
 namespace {
 
-template <typename T, int NM>
-__global__ void __launch_bounds__(THREADS, 1)
-    mel_frontend_kernel(const float* __restrict__ x, int n, int pad_left,
-                        const T* __restrict__ wt, const float* __restrict__ melt,
-                        float* __restrict__ out, float* __restrict__ tile_max,
-                        int n_dft, int hop, int n_frames, int n_chunks,
-                        int decibel, float amin) {
-  constexpr int MC = NM / 32;  // mel columns per thread
+// The bf16 mode: FRAMES = 64·CWG frames of one sample per block, the DFT
+// stage's consumers and producer (dft_stage.cuh). Per chunk of 64 bins the
+// consumers write the power tile P[bin row][frame], then sum the filter
+// segments that fall in the chunk (mel_segments in ops/dft_stage.py):
+// thread ctid takes frame ctid % FRAMES of segments ctid / FRAMES,
+// + CONSUMERS / FRAMES, …; a filter cut by a chunk edge carries its partial
+// sum in carry[slot][frame] into the next chunk. Finished filters go out as
+// sqrt → dB or amplitude, stored along T.
+constexpr int CARRY_SLOTS = 8;
+constexpr int SEG_FROM = 1, SEG_TO = 2;
+
+template <int CWG>
+__global__ void __launch_bounds__(DftShape<CWG>::THREADS, 1)
+    mel_dft_kernel(const float* __restrict__ x, int n, int pad_left,
+                   const __nv_bfloat16* __restrict__ wt, const int* __restrict__ seg_ptr,
+                   const int4* __restrict__ segs, const float* __restrict__ mel_w,
+                   int n_mels, float* __restrict__ out, float* __restrict__ tile_max,
+                   int n_dft, int hop, int n_frames, int n_chunks, int packed,
+                   int decibel, float amin) {
+  using S = DftShape<CWG>;
+  constexpr int FRAMES = S::FRAMES, PLD = S::PLD;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* S = reinterpret_cast<float*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + TM * SLD * sizeof(float));
-  T* seg = Bs + NCOL * Tile<T>::LD;
+  const DftSmem<CWG> sm(smem, CARRY_SLOTS * FRAMES);
+  float* P = sm.P;
+  float* carry = sm.extra;  // [CARRY_SLOTS][FRAMES]
 
   const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
-  const int t0 = tile * TM;
-  stage_waveform(x + (size_t)b * n, n, pad_left, t0, n_dft, hop, seg, tid);
-
-  const int rg = tid >> 5, lane = tid & 31;  // mel stage: rows 8·rg+i, cols lane+32·j
-  float acc[8][MC];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
-
-  for (int c = 0; c < n_chunks; ++c) {
-    dft_chunk(wt + (size_t)c * NCOL * n_dft, Bs, seg, S, n_dft, hop, tid);
-    __syncthreads();
-    for (int i = tid; i < TM * FC; i += THREADS) {
-      float* row = S + (i / FC) * SLD;
-      const int f = i % FC;
-      const float re = row[f], im = row[FC + f];
-      row[f] = re * re + im * im;
-    }
-    __syncthreads();
-    const float* mc = melt + (size_t)c * FC * NM + lane;
-#pragma unroll 4
-    for (int f = 0; f < FC; ++f) {
-      float p[8], m[MC];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = S[(rg * 8 + i) * SLD + f];
-#pragma unroll
-      for (int j = 0; j < MC; ++j) m[j] = __ldg(mc + f * NM + 32 * j);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < MC; ++j) acc[i][j] = fmaf(p[i], m[j], acc[i][j]);
-    }
-    __syncthreads();
+  const int t0 = tile * FRAMES, lane = tid & 31, n_kt = n_dft / DFT_KT;
+  dft_begin<CWG>(sm, x + (size_t)b * n, n, pad_left, t0, n_dft, hop, tid);
+  if (tid >= S::CONSUMERS) {
+    dft_produce(wt, sm.ring, sm.bars, n_chunks * n_kt, lane);
+    return;
   }
 
+  const int warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int r_lo = 16 * warp + g;  // this thread's rows r_lo, r_lo + 8 (warpgroup w: 64w …)
+  const __nv_bfloat16* a_lo = sm.seg + r_lo * hop + 2 * q;
+  const __nv_bfloat16* a_hi = a_lo + 8 * hop;
+  const int f = tid % FRAMES, t = t0 + f;
+  float* ob = out + (size_t)b * n_mels * n_frames + t;
   float vmax = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = t0 + rg * 8 + i;
-    if (t >= n_frames) continue;
-#pragma unroll
-    for (int j = 0; j < MC; ++j) {
-      const float amp = sqrtf(fmaxf(acc[i][j], 0.f));
-      const float v = decibel ? 10.f * log10f(fmaxf(amp, amin)) : amp;
-      out[((size_t)b * NM + lane + 32 * j) * n_frames + t] = v;
-      vmax = fmaxf(vmax, v);
+  int it = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    float d[DFT_ACC];
+    dft_chunk(d, a_lo, a_hi, sm.ring, sm.bars, n_kt, it, lane);
+    bar_sync(1, S::CONSUMERS);  // the last chunk's segments are done with P
+    dft_power(d, r_lo, q, c == 0 && packed && q == 0,
+              [P](int row, int r, float p) { P[row * PLD + r] = p; });
+    bar_sync(1, S::CONSUMERS);
+    for (int i = __ldg(seg_ptr + c) + tid / FRAMES; i < __ldg(seg_ptr + c + 1);
+         i += S::CONSUMERS / FRAMES) {
+      const int4 sg = __ldg(segs + i);
+      const int m = sg.x & 0xffff, slot = (sg.x >> 16) & 0xff, flags = sg.x >> 24;
+      float acc = (flags & SEG_FROM) ? carry[slot * FRAMES + f] : 0.f;
+      const float* pr = P + sg.y * PLD + f;
+      for (int j = 0; j < sg.z; ++j) acc = fmaf(__ldg(mel_w + sg.w + j), pr[j * PLD], acc);
+      if (flags & SEG_TO) {
+        carry[slot * FRAMES + f] = acc;
+      } else if (t < n_frames) {
+        const float amp = sqrtf(fmaxf(acc, 0.f));
+        const float v = decibel ? 10.f * log10f(fmaxf(amp, amin)) : amp;
+        ob[(size_t)m * n_frames] = v;
+        vmax = fmaxf(vmax, v);
+      }
     }
   }
-  if (decibel) block_max(vmax, tile_max + b * gridDim.x + tile, tid);
+  if (decibel) consumers_max<CWG>(vmax, sm.red, tile_max + b * gridDim.x + tile, tid);
 }
 
-template <typename T, int NM>
-int launch(const float* x, int batch, int n, int pad_left, const void* wt,
-           const float* melt, float* out, float* tile_max, int n_dft, int hop,
-           int n_frames, int n_chunks, int decibel, float amin,
-           float dynamic_range, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(n_dft, hop);
-  auto kernel = mel_frontend_kernel<T, NM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n_frames + TM - 1) / TM;
-  kernel<<<dim3(n_tiles, batch), THREADS, smem, stream>>>(
-      x, n, pad_left, static_cast<const T*>(wt), melt, out, tile_max, n_dft, hop,
-      n_frames, n_chunks, decibel, amin);
-  err = cudaGetLastError();
+template <int CWG>
+int launch_bf16(const float* x, int batch, int n, int pad_left, const void* wt,
+                const int* seg_ptr, const int4* segs, const float* mel_w, int n_mels,
+                float* out, float* tile_max, int n_dft, int hop, int n_frames, int n_chunks,
+                int packed, int decibel, float amin, float dynamic_range,
+                cudaStream_t stream) {
+  using S = DftShape<CWG>;
+  const size_t smem = dft_smem_bytes<CWG>(n_dft, hop, CARRY_SLOTS * S::FRAMES);
+  auto kernel = mel_dft_kernel<CWG>;
+  static size_t smem_set[MAX_DEVICES] = {};  // per device: see raise_smem_limit
+  if (int rc = raise_smem_limit(kernel, smem, smem_set)) return rc;
+  const int n_tiles = (n_frames + S::FRAMES - 1) / S::FRAMES;
+  kernel<<<dim3(n_tiles, batch), S::THREADS, smem, stream>>>(
+      x, n, pad_left, static_cast<const __nv_bfloat16*>(wt), seg_ptr, segs, mel_w, n_mels, out,
+      tile_max, n_dft, hop, n_frames, n_chunks, packed, decibel, amin);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !decibel) return (int)err;
-  return launch_db_finalize(out, tile_max, batch, n_tiles, NM * n_frames,
+  return launch_db_finalize(out, tile_max, batch, n_tiles, n_mels * n_frames,
                             dynamic_range, stream);
 }
 
@@ -176,14 +187,13 @@ int launch_f32(const float* x, int batch, int n, int pad_left, const float* win,
                cudaStream_t stream) {
   const size_t smem = fft_smem_bytes<M>(hop, n_mels * FFT_TLD);
   auto kernel = mel_fft_kernel<M>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t smem_set[MAX_DEVICES] = {};  // per device: see raise_smem_limit
+  if (int rc = raise_smem_limit(kernel, smem, smem_set)) return rc;
   const int n_tiles = (n_frames + FFT_FRAMES - 1) / FFT_FRAMES;
   kernel<<<dim3(n_tiles, batch), THREADS, smem, stream>>>(
       x, n, pad_left, win, tw, mel_ptr, mel_lo, mel_w, n_mels, out, tile_max, hop,
       n_frames, decibel, amin);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !decibel) return (int)err;
   return launch_db_finalize(out, tile_max, batch, n_tiles, n_mels * n_frames,
                             dynamic_range, stream);
@@ -193,32 +203,36 @@ int launch_f32(const float* x, int batch, int n, int pad_left, const float* win,
 
 extern "C" {
 
-// Frames per block of each mode and frequency bins per chunk of the bf16
+// Basis columns per chunk of the bf16 mode and frames per block of the f32
 // mode: the wrapper lays out the bases and the tile-max scratch to match.
-int l3_mel_frames_per_block() { return TM; }
-int l3_mel_bins_per_chunk() { return FC; }
+int l3_mel_cols_per_chunk() { return DFT_COLS; }
 int l3_mel_fft_frames_per_block() { return FFT_FRAMES; }
 
-// bf16 mode. x: (batch, n) f32 waveform; wt: (n_chunks, 2·FC, n_dft) bf16
-// bases, each chunk's FC re rows then its FC im rows; melt: (n_chunks·FC,
-// n_mels) f32; out: (batch, n_mels, n_frames) f32; tile_max: (batch,
-// ceil(n_frames/TM)) f32 scratch. Returns a cudaError_t code: 0 on success.
-int l3_mel_frontend_bf16(const void* x, int batch, int n, int pad_left,
-                         const void* wt, const void* melt, void* out, void* tile_max,
-                         int n_dft, int hop, int n_frames, int n_chunks, int n_mels,
-                         int decibel, float amin, float dynamic_range, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* mf = static_cast<const float*>(melt);
-  float* of = static_cast<float*>(out);
-  float* tf = static_cast<float*>(tile_max);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_dft % Tile<__nv_bfloat16>::KC != 0 || hop % 2 != 0) return (int)cudaErrorInvalidValue;
-#define L3_LAUNCH(NM)                                                          \
-  return launch<__nv_bfloat16, NM>(xf, batch, n, pad_left, wt, mf, of, tf,     \
-                                   n_dft, hop, n_frames, n_chunks, decibel,    \
-                                   amin, dynamic_range, s)
-  if (n_mels == 256) L3_LAUNCH(256);
-  if (n_mels == 128) L3_LAUNCH(128);
+// bf16 mode. x: (batch, n) f32 waveform; wt: (n_chunks, n_dft/64, 128·64)
+// bf16 basis stages (ops/dft_stage.py: interleaved columns, swizzled);
+// seg_ptr (n_chunks+1,) int32 and segs (n_segs, 4) int32: the filterbank's
+// CSR rows cut at chunk edges; mel_w (nnz,) f32: their weights; out:
+// (batch, n_mels, n_frames) f32; tile_max: (batch, ceil(n_frames/frames))
+// f32 scratch. frames_per_block 64 or 128, n_dft a multiple of 64, hop
+// even; packed: pair 0 holds bins 0 and N/2 (n_dft a multiple of 128).
+// Returns a cudaError_t code: 0 on success.
+int l3_mel_frontend_bf16(const void* x, int batch, int n, int pad_left, const void* wt,
+                         const void* seg_ptr, const void* segs, const void* mel_w, void* out,
+                         void* tile_max, int n_dft, int hop, int n_frames, int n_chunks,
+                         int n_mels, int frames_per_block, int decibel, float amin,
+                         float dynamic_range, void* stream) {
+  if (n_dft % DFT_KT != 0 || hop % 2 != 0 || n_mels > 0xffff) return (int)cudaErrorInvalidValue;
+  const int packed = n_dft % DFT_COLS == 0;
+  if (n_chunks * DFT_COLS != n_dft + (packed ? 0 : DFT_BINS)) return (int)cudaErrorInvalidValue;
+#define L3_LAUNCH(CWG)                                                                   \
+  return launch_bf16<CWG>(static_cast<const float*>(x), batch, n, pad_left, wt,          \
+                          static_cast<const int*>(seg_ptr), static_cast<const int4*>(segs), \
+                          static_cast<const float*>(mel_w), n_mels, static_cast<float*>(out), \
+                          static_cast<float*>(tile_max), n_dft, hop, n_frames, n_chunks,  \
+                          packed, decibel, amin, dynamic_range,                          \
+                          static_cast<cudaStream_t>(stream))
+  if (frames_per_block == 128) L3_LAUNCH(2);
+  if (frames_per_block == 64) L3_LAUNCH(1);
 #undef L3_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -10,6 +10,7 @@ every source that uses it and a stale library is never loaded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "l3torch_kernels"
@@ -90,3 +93,11 @@ def build(name: str, verbose: bool = False) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, loaded once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def on_device(device: torch.device):
+    """Make `device` current around a launch; no guard when it already is
+    (the launch goes to the runtime's current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -8,10 +8,11 @@ loads it with ctypes. It has two modes, at the main path's shape (B=64,
 199 frames, n_dft 2048, 1025 bins, 256 mels):
 
 * ``fast=True``, the TPU kernel's numerics: the windowed DFT as a product
-  with the DFT bases on the bf16 tensor cores (``csrc/dft_stage.cuh``,
-  ~107 GFLOP at 989 TFLOP/s) and a dense f32 mel product on the FP32 pipes
-  (~6.7 GFLOP at ~67 TFLOP/s). These units work at the same time, so the
-  bound is the larger, ~0.108 ms: bound by operations.
+  with the DFT bases on the bf16 tensor cores (``csrc/dft_stage.cuh``:
+  ``wgmma`` fed by a ring of bulk copies, bases laid out by
+  ``dft_stage.py``; ~107 GFLOP at 989 TFLOP/s) and the mel sum over each
+  filter's nonzero bins, cut at the DFT stage's chunk edges (~52 MFLOP):
+  bound by operations, ~0.108 ms.
 * ``fast=False``, the f32 parity configuration: a real FFT of each frame in
   shared memory (``csrc/fft_stage.cuh``, tables from ``fft_stage.py``) and
   the mel sum over each filter's nonzero bins only (CSR rows). ~0.73 GFLOP
@@ -34,20 +35,11 @@ import ctypes
 import functools
 from collections import Counter
 
-import numpy as np
 import torch
 
 from . import cuda_build, dft_stage, dsp_ref, fft_stage
 from .dft_stage import AMIN, DYNAMIC_RANGE
-from .frontend import (
-    MelConfig,
-    amplitude_to_db,
-    mel_matrix,
-    mel_matrix_f32,
-    power_frames,
-    stft_basis_f32,
-    to_nhwc_db,
-)
+from .frontend import MelConfig, amplitude_to_db, mel_matrix, power_frames, to_nhwc_db
 
 # Launches of the CUDA kernel through melspectrogram_fused, by operand type
 # ("bf16", "f32"): one per call (the mel kernel, plus its dB pass in the same
@@ -55,42 +47,58 @@ from .frontend import (
 LAUNCHES: Counter = Counter()
 
 
-@functools.lru_cache(maxsize=None)
-def padded_bases(sr, n_dft, n_mels, fmin, fmax, htk):
-    """(W_re, W_im) of shape (n_dft, F_pad) and melT (F_pad, n_mels), f32:
-    the front end's bases zero-padded along the frequency axis to a
-    FREQ_CHUNK multiple (the padded bins contribute nothing to the mel
-    sum). Only the bf16 kernel's device layout uses them."""
-    w_re, w_im = dft_stage.pad_bins(*stft_basis_f32(n_dft))
-    melt = np.zeros((w_re.shape[1], n_mels), np.float32)
-    mel_t = mel_matrix_f32(sr, n_dft, n_mels, fmin, fmax, htk)
-    melt[: mel_t.shape[0]] = mel_t
-    return w_re, w_im, melt
-
-
 def _bases_key(cfg: MelConfig):
     return (cfg.sr, cfg.n_dft, cfg.n_mels, cfg.fmin, cfg.fmax, cfg.htk)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bases(key, device: str):
-    """Device copies in the bf16 kernel's layout: wt (n_chunks, 2·FC,
-    n_dft) bf16 (dft_stage.chunked) and melT (F_pad, n_mels) f32."""
-    w_re, w_im, melt = padded_bases(*key)
-    wt = torch.from_numpy(dft_stage.chunked(w_re, w_im)).to(device=device, dtype=torch.bfloat16)
-    return wt.contiguous(), torch.from_numpy(melt).to(device)
+def _bf16_tables(key, device: str) -> tuple[torch.Tensor, ...]:
+    """The bf16 kernel's tables on `device`: the basis stages
+    (dft_stage.device_bases), and the filterbank's CSR rows cut at chunk
+    edges (seg_ptr, segs) with their weights."""
+    n_dft = key[1]
+    ptr, lo, w = fft_stage.mel_csr(*key)
+    seg_ptr, segs = dft_stage.mel_segments(ptr, lo, n_dft)
+    wt = dft_stage.device_bases(n_dft, None, device)
+    return (wt, *(torch.from_numpy(a).to(device) for a in (seg_ptr, segs, w)))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("mel_frontend")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.l3_mel_frontend_bf16.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i, f, f, p]
+    lib.l3_mel_frontend_bf16.argtypes = [p, i, i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
     lib.l3_mel_frontend_f32.argtypes = [p, i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, f, f, p]
     lib.l3_mel_frontend_bf16.restype = lib.l3_mel_frontend_f32.restype = i
     dft_stage.check_tiles(lib, "l3_mel")
     fft_stage.check_tiles(lib, "l3_mel")
     return lib
+
+
+@functools.lru_cache(maxsize=64)  # call shapes in use; tables are cached apart
+def _launch(cfg: MelConfig, batch: int, n: int, fast: bool, device: str):
+    """What a call at (cfg, batch, n samples, mode, device) needs besides its
+    tensors, made once: (entry point, table pointers, the arguments between
+    tile_max and the stream, frames per block, n_frames, pad_left, tables).
+    The tables are allocated here, before a first call's `out` (the order
+    of the allocations decides where `out` lies in device memory)."""
+    n_frames = cfg.n_frames(n)
+    pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
+    decibel = int(cfg.decibel and cfg.db_per_sample)
+    if fast:
+        tables = _bf16_tables(_bases_key(cfg), device)
+        frames = dft_stage.frames_per_block(batch, n_frames, device)
+        n_chunks = tables[0].shape[0]
+        fn = _library().l3_mel_frontend_bf16
+        mid = (cfg.n_dft, cfg.hop, n_frames, n_chunks, cfg.n_mels, frames)
+    else:
+        tables = fft_stage.device_tables(cfg.n_dft, None, device)
+        tables += fft_stage.device_mel_csr(_bases_key(cfg), device)
+        frames = fft_stage.FRAMES_PER_BLOCK
+        fn = _library().l3_mel_frontend_f32
+        mid = (cfg.n_dft, cfg.hop, n_frames, cfg.n_mels)
+    ptrs = tuple(t.data_ptr() for t in tables)
+    return fn, ptrs, mid + (decibel, AMIN, DYNAMIC_RANGE), frames, n_frames, pad_left, tables
 
 
 def melspectrogram_fused_ref(
@@ -137,32 +145,17 @@ def melspectrogram_fused(
         )
     if cfg.n_mels not in (128, 256):
         raise ValueError(f"melspectrogram_fused: n_mels must be 128 or 256, got {cfg.n_mels}")
-    if not fast:
+    if fast:
+        dft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
+    else:
         fft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
     batch, n = x.shape
-    n_frames = cfg.n_frames(n)
-    pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
-    decibel = cfg.decibel and cfg.db_per_sample
-    # The tables come first: a first call allocates them, and the order of
-    # the allocations decides where `out` lies in device memory.
-    if fast:
-        wt, melt = _kernel_bases(_bases_key(cfg), str(x.device))
-        entry, tables, sizes = "l3_mel_frontend_bf16", (wt, melt), (wt.shape[0],)
-    else:
-        tables = fft_stage.device_tables(cfg.n_dft, None, str(x.device))
-        tables += fft_stage.device_mel_csr(_bases_key(cfg), str(x.device))
-        entry, sizes = "l3_mel_frontend_f32", ()
-    frames_per_block = dft_stage.FRAMES_PER_BLOCK if fast else fft_stage.FRAMES_PER_BLOCK
+    fn, ptrs, args, frames, n_frames, pad_left, _ = _launch(cfg, batch, n, fast, str(x.device))
     out = torch.empty((batch, cfg.n_mels, n_frames), device=x.device, dtype=torch.float32)
-    tile_max = torch.empty(
-        (batch, -(-n_frames // frames_per_block)), device=x.device, dtype=torch.float32
-    )
-    with torch.cuda.device(x.device):
-        rc = getattr(_library(), entry)(
-            x.data_ptr(), batch, n, pad_left, *(t.data_ptr() for t in tables), out.data_ptr(),
-            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, *sizes, cfg.n_mels,
-            int(decibel), AMIN, DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    tile_max = torch.empty((batch, -(-n_frames // frames)), device=x.device, dtype=torch.float32)
+    with cuda_build.on_device(x.device):
+        rc = fn(x.data_ptr(), batch, n, pad_left, *ptrs, out.data_ptr(), tile_max.data_ptr(),
+                *args, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mel front-end kernel launch failed: CUDA error {rc}")
     LAUNCHES["bf16" if fast else "f32"] += 1

@@ -12,7 +12,8 @@ n_dft 512, 257 bins) both modes are bound by bytes (~25 MB of PCM and f32
 output, ~7.5 µs):
 
 * ``fast=True``: the windowed DFT as a product with the bases on the bf16
-  tensor cores (``csrc/dft_stage.cuh``; ~6.6 GFLOP, ~7 µs at 989
+  tensor cores (``csrc/dft_stage.cuh``: ``wgmma`` fed by a ring of bulk
+  copies, bases laid out by ``dft_stage.py``; ~6.6 GFLOP, ~7 µs at 989
   TFLOP/s), the TPU kernel's numerics;
 * ``fast=False``: a real FFT of each frame in shared memory
   (``csrc/fft_stage.cuh``, tables from ``fft_stage.py``; ~0.14 GFLOP,
@@ -34,7 +35,7 @@ import torch
 
 from . import cuda_build, dft_stage, dsp_ref, fft_stage
 from .dft_stage import AMIN, DYNAMIC_RANGE
-from .frontend import SpectrogramConfig, amplitude_to_db, power_frames, stft_basis_f32, to_nhwc_db
+from .frontend import SpectrogramConfig, amplitude_to_db, power_frames, to_nhwc_db
 
 # Launches of the CUDA kernel through spectrogram_fused, by operand type
 # ("bf16", "f32"): one per call (the kernel, plus its dB pass in the same
@@ -43,23 +44,39 @@ LAUNCHES: Counter = Counter()
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bases(n_dft: int, n_win: int | None, device: str):
-    """The windowed DFT bases in the bf16 kernel's layout
-    (dft_stage.chunked), zero past n_freq, bf16 on `device`."""
-    wt = dft_stage.chunked(*dft_stage.pad_bins(*stft_basis_f32(n_dft, n_win)))
-    return torch.from_numpy(wt).to(device=device, dtype=torch.bfloat16).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("spec_frontend")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.l3_spec_frontend_bf16.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, f, i, f, f, p]
+    lib.l3_spec_frontend_bf16.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, i, f, i, f, f, p]
     lib.l3_spec_frontend_f32.argtypes = [p, i, i, i, p, p, p, p, i, i, i, f, i, f, f, p]
     lib.l3_spec_frontend_bf16.restype = lib.l3_spec_frontend_f32.restype = i
     dft_stage.check_tiles(lib, "l3_spec")
     fft_stage.check_tiles(lib, "l3_spec")
     return lib
+
+
+@functools.lru_cache(maxsize=64)  # call shapes in use; tables are cached apart
+def _launch(cfg: SpectrogramConfig, batch: int, n: int, fast: bool, device: str):
+    """What a call at (cfg, batch, n samples, mode, device) needs besides its
+    tensors, made once: (entry point, table pointers, the arguments between
+    tile_max and the stream, frames per block, n_frames, pad_left, tables).
+    The tables are allocated here, before a first call's `out` (the order
+    of the allocations decides where `out` lies in device memory)."""
+    n_frames = cfg.n_frames(n)
+    pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
+    tail = (float(cfg.power), int(cfg.decibel and cfg.db_per_sample), AMIN, DYNAMIC_RANGE)
+    if fast:
+        tables = (dft_stage.device_bases(cfg.n_dft, cfg.n_win, device),)
+        frames = dft_stage.frames_per_block(batch, n_frames, device)
+        fn = _library().l3_spec_frontend_bf16
+        mid = (cfg.n_dft, cfg.hop, n_frames, cfg.n_freq, tables[0].shape[0], frames)
+    else:
+        tables = fft_stage.device_tables(cfg.n_dft, cfg.n_win, device)
+        frames = fft_stage.FRAMES_PER_BLOCK
+        fn = _library().l3_spec_frontend_f32
+        mid = (cfg.n_dft, cfg.hop, n_frames)
+    ptrs = tuple(t.data_ptr() for t in tables)
+    return fn, ptrs, mid + tail, frames, n_frames, pad_left, tables
 
 
 def _check_cfg(cfg: SpectrogramConfig) -> None:
@@ -122,27 +139,12 @@ def spectrogram_fused(
         raise ValueError(f"spectrogram_fused: {n} samples give no frame of {cfg.n_dft}")
     if not fast:
         fft_stage.check_n_dft(cfg.n_dft, "spectrogram_fused")
-    pad_left = dsp_ref.same_pad_amounts(n, cfg.n_dft, cfg.hop)[0] if cfg.padding == "same" else 0
-    decibel = cfg.decibel and cfg.db_per_sample
-    # The tables come first: a first call allocates them, and the order of
-    # the allocations decides where `out` lies in device memory.
-    if fast:
-        wt = _kernel_bases(cfg.n_dft, cfg.n_win, str(x.device))
-        entry, tables, sizes = "l3_spec_frontend_bf16", (wt,), (cfg.n_freq, wt.shape[0])
-    else:
-        tables = fft_stage.device_tables(cfg.n_dft, cfg.n_win, str(x.device))
-        entry, sizes = "l3_spec_frontend_f32", ()
-    frames_per_block = dft_stage.FRAMES_PER_BLOCK if fast else fft_stage.FRAMES_PER_BLOCK
+    fn, ptrs, args, frames, n_frames, pad_left, _ = _launch(cfg, batch, n, fast, str(x.device))
     out = torch.empty((batch, cfg.n_freq, n_frames), device=x.device, dtype=torch.float32)
-    tile_max = torch.empty(
-        (batch, -(-n_frames // frames_per_block)), device=x.device, dtype=torch.float32
-    )
-    with torch.cuda.device(x.device):
-        rc = getattr(_library(), entry)(
-            x.data_ptr(), batch, n, pad_left, *(t.data_ptr() for t in tables), out.data_ptr(),
-            tile_max.data_ptr(), cfg.n_dft, cfg.hop, n_frames, *sizes, float(cfg.power),
-            int(decibel), AMIN, DYNAMIC_RANGE, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    tile_max = torch.empty((batch, -(-n_frames // frames)), device=x.device, dtype=torch.float32)
+    with cuda_build.on_device(x.device):
+        rc = fn(x.data_ptr(), batch, n, pad_left, *ptrs, out.data_ptr(), tile_max.data_ptr(),
+                *args, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spectrogram kernel launch failed: CUDA error {rc}")
     LAUNCHES["bf16" if fast else "f32"] += 1

@@ -20,7 +20,7 @@ from l3embedding_tpu.ops.pallas_frontend import _padded_bases as jax_padded_base
 from l3embedding_tpu.ops.pallas_frontend import melspectrogram_fused as jax_fused
 from l3embedding_torch.ops import dsp_ref as tdsp
 from l3embedding_torch.ops import frontend as tfe
-from l3embedding_torch.ops import mel_kernel
+from l3embedding_torch.ops import dft_stage, fft_stage, mel_kernel
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -57,25 +57,34 @@ def test_bases_equal_dsp_ref(n_mels):
         for padding in ("same", "valid"):
             assert tdsp.num_frames(n, 512, 242, padding) == jdsp.num_frames(n, 512, 242, padding)
 
-    # The kernel's zero-padded bases: dsp_ref in the first 1025 bins, zero after,
-    # and in bf16 the same bits as the Pallas kernel's bases.
-    w_re, w_im, melt = mel_kernel.padded_bases(48000, 2048, n_mels, 0.0, None, True)
+    # The bf16 kernel's device bases: interleaved re/im columns, unpacked,
+    # are dsp_ref's bases and, in bf16, the same bits as the Pallas kernel's
+    # bases, but for im_{N/2} (below 5e-13), which pair 0's packing drops;
+    # the filter segments expand to the Pallas kernel's melT.
     real, imag = jdsp.stft_basis(2048)
-    n_freq = real.shape[1]
-    np.testing.assert_array_equal(w_re[:, :n_freq], real.astype(np.float32))
-    np.testing.assert_array_equal(w_im[:, :n_freq], imag.astype(np.float32))
-    np.testing.assert_array_equal(
-        melt[:n_freq], jdsp.mel_filterbank(48000, 2048, n_mels).T.astype(np.float32)
-    )
-    assert not w_re[:, n_freq:].any() and not w_im[:, n_freq:].any()
-    assert not melt[n_freq:].any()
+    cols = dft_stage.interleaved(*tfe.stft_basis_f32(2048))
+    assert cols.shape == (2048, 2048)
+    w_re, w_im = dft_stage.unpack_pairs(cols)
+    np.testing.assert_array_equal(w_re, real.astype(np.float32))
+    np.testing.assert_array_equal(w_im[:, :1024], imag[:, :1024].astype(np.float32))
+    assert not w_im[:, 1024].any() and np.abs(imag[:, 1024]).max() < 5e-13
     j_re, j_im, j_melt = jax_padded_bases(48000, 2048, n_mels, 0.0, None, True)
-    for ours, theirs in ((w_re, j_re), (w_im, j_im)):
-        np.testing.assert_array_equal(
-            torch.from_numpy(ours[:, :n_freq]).to(torch.bfloat16).float().numpy(),
-            np.asarray(theirs[:, :n_freq], np.float32),
-        )
-    np.testing.assert_array_equal(melt[:n_freq], j_melt[:n_freq])
+    b_re, b_im = dft_stage.unpack_pairs(
+        torch.from_numpy(cols).to(torch.bfloat16).float().numpy()
+    )
+    np.testing.assert_array_equal(b_re, np.asarray(j_re[:, :1025], np.float32))
+    np.testing.assert_array_equal(b_im[:, :1024], np.asarray(j_im[:, :1024], np.float32))
+    assert np.abs(np.asarray(j_im[:, 1024], np.float32)).max() < 5e-13
+    ptr, lo, w = fft_stage.mel_csr(48000, 2048, n_mels, 0.0, None, True)
+    seg_ptr, segs = dft_stage.mel_segments(ptr, lo, 2048)
+    melt = np.zeros((1025, n_mels), np.float32)
+    for c in range(seg_ptr.size - 1):
+        for head, row, length, off in segs[seg_ptr[c] : seg_ptr[c + 1]]:
+            for j in range(length):
+                b = 1024 if row + j == 64 else 64 * c + row + j
+                melt[b, head & 0xFFFF] = w[off + j]
+    np.testing.assert_array_equal(melt, j_melt[:1025] + np.float32(0.0))
+    assert not j_melt[1025:].any()
 
 
 def test_frame_signal_and_db_helpers_match_jax():
@@ -256,13 +265,14 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_ab_tool_keys_sass_by_name_without_the_namespace_hash(monkeypatch):
     """frontend_ab hashes each kernel function's SASS under its name with
-    the per-source hash of the anonymous namespace dropped, so a kernel of
-    two versions of a source is found under one name, and only a change of
-    its code changes its hash."""
+    the two per-source hashes of the anonymous namespace dropped, so a
+    kernel of two versions of a source is found under one name, and only a
+    change of its code, not of cuobjdump's column padding, changes its
+    hash."""
     from l3embedding_torch.tools import frontend_ab
 
     def dump(ns, body):
-        head = f"\t\tFunction : _ZN48_GLOBAL__N__{ns}_15_mel_frontend_cu_8d09368313"
+        head = f"\t\tFunction : _ZN48_GLOBAL__N__{ns}_15_mel_frontend_cu_{ns[::-1]}13"
         return f"{head}kernel_aEv\n{body}\n{head}kernel_bEv\n        /*0000*/ EXIT ;\n"
 
     def hashes(text):
@@ -270,8 +280,30 @@ def test_ab_tool_keys_sass_by_name_without_the_namespace_hash(monkeypatch):
                             lambda *a, **k: type("Proc", (), {"stdout": text})())
         return frontend_ab._sass_hashes("lib.so")
 
-    a = hashes(dump("ebbc2795", "        /*0000*/ FADD R0, R1, R2 ;"))
-    b = hashes(dump("058b4dd6", "        /*0000*/ FADD R0, R1, R2 ;"))
+    a = hashes(dump("ebbc2795", "        /*0000*/ FADD R0, R1, R2 ; /* 0x0 */"))
+    b = hashes(dump("058b4dd6", "        /*0000*/   FADD R0, R1, R2 ;     /* 0x0 */"))
     c = hashes(dump("058b4dd6", "        /*0000*/ FMUL R0, R1, R2 ;"))
     assert len(a) == 2 and a == b
     assert sorted(a) == sorted(c) and [a[k] == c[k] for k in sorted(a)] == [False, True]
+
+
+def test_smoke_ab_tool_sums_up_a_smoke_log():
+    """smoke_ab reads each run's extraction rates, AVC forward times and
+    its last kernels line out of chip_smoke's output."""
+    from l3embedding_torch.tools import smoke_ab
+
+    text = "\n".join([
+        "extractor cnn_L3_melspec2 fast=True short: (64, 512), launches {}, min cosine vs CPU copy 1.0",
+        "extractor cnn_L3_melspec2 fast=True short: 3674.7 windows/s",
+        "extractor tiny_L3 fast=False short: 12518.3 windows/s",
+        "avc cnn_L3_orig fast=True: logits (8, 2), launches {'spec_frontend_bf16': 1}, cosine vs CPU "
+        "copy 0.9999987 (>= 0.999), max |d|/max 2.91e-03, forward 5.094 ms at batch 8",
+        '{"kernels": [{"name": "mel_frontend_bf16", "ms": 0.3131}]}',
+        '{"ok": true, "device": {"platform": "gpu", "kind": "H100", "count": 1}}',
+    ])
+    got = smoke_ab.summary(text)
+    assert got["windows_per_s"] == {"cnn_L3_melspec2 fast=True short": 3674.7,
+                                    "tiny_L3 fast=False short": 12518.3}
+    assert got["avc_forward_ms"] == {"cnn_L3_orig fast=True": 5.094}
+    assert got["kernels"] == [{"name": "mel_frontend_bf16", "ms": 0.3131}]
+    assert smoke_ab.summary("chip_smoke: no CUDA device")["kernels"] is None

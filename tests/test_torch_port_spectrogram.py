@@ -54,25 +54,28 @@ def _db(x):
 
 @pytest.mark.parametrize("n_win", [None, 480])
 def test_kernel_bases_match_pallas_bases(n_win):
-    """The kernel's chunked bases hold dsp_ref's bases in the first 257
-    bins, zeros after, and in bf16 the Pallas kernel's bits."""
+    """The kernel's bases: 512 columns, re and im of each bin interleaved,
+    pair 0 holding (re_0, re_256); unpacked they are dsp_ref's bases but
+    for im_256 (below 2e-13), and in bf16 the Pallas kernel's bits; each
+    16 KB stage holds 128 columns × 64 K values."""
     real, imag = jdsp.stft_basis(512, n_win)
-    w_re, w_im = dft_stage.pad_bins(*tfe.stft_basis_f32(512, n_win))
-    assert w_re.shape == (512, 320)
-    np.testing.assert_array_equal(w_re[:, :257], real.astype(np.float32))
-    np.testing.assert_array_equal(w_im[:, :257], imag.astype(np.float32))
-    assert not w_re[:, 257:].any() and not w_im[:, 257:].any()
+    cols = dft_stage.interleaved(*tfe.stft_basis_f32(512, n_win))
+    assert cols.shape == (512, 512)
+    w_re, w_im = dft_stage.unpack_pairs(cols)
+    np.testing.assert_array_equal(w_re, real.astype(np.float32))
+    np.testing.assert_array_equal(w_im[:, :256], imag[:, :256].astype(np.float32))
+    assert not w_im[:, 256].any() and np.abs(imag[:, 256]).max() < 2e-13
     j_re, j_im, n_freq = jax_padded_stft_bases(512, n_win)
     assert n_freq == 257
-    for ours, theirs in ((w_re, j_re), (w_im, j_im)):
-        np.testing.assert_array_equal(
-            torch.from_numpy(ours[:, :257]).to(torch.bfloat16).float().numpy(),
-            np.asarray(theirs[:, :257], np.float32),
-        )
-    wt = dft_stage.chunked(w_re, w_im)
-    assert wt.shape == (5, 128, 512)
-    np.testing.assert_array_equal(wt[1, :64], w_re[:, 64:128].T)
-    np.testing.assert_array_equal(wt[1, 64:], w_im[:, 64:128].T)
+    b_re, b_im = dft_stage.unpack_pairs(torch.from_numpy(cols).to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(b_re, np.asarray(j_re[:, :257], np.float32))
+    np.testing.assert_array_equal(b_im[:, :256], np.asarray(j_im[:, :256], np.float32))
+    tiles = dft_stage.stage_tiles(cols)
+    assert tiles.shape == (4, 8, 128 * 64)
+    n, k = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    np.testing.assert_array_equal(
+        tiles[1, 2][dft_stage.swizzle_index(n, k)], cols[128:256, 128:192]
+    )
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
