@@ -7,7 +7,8 @@ extraction for all five model types (cnn_L3_melspec2 and cnn_L3_orig at
 full width in f32 and bf16), the AVC forward of all five at batch 8,
 get_audio_embedding and get_image_embedding, each against a CPU copy of
 the same weights, and the block-1 probe tool
-(``l3embedding_torch.tools.block1_spike all``) at batch 128.
+(``l3embedding_torch.tools.block1_spike all``) at batch 128; the block-1
+library's SASS must show wgmma fed by TMA and no mma.sync.
 
     python3 chip_smoke.py
 
@@ -377,15 +378,42 @@ def block1_gate(what: str, got: torch.Tensor, want: torch.Tensor, rel_gate: floa
     return max_abs
 
 
+def cudnn_conv_relu_folded(x, w_folded, shift_bf16):
+    """The conv's one-call yardstick: torch.cudnn_convolution_relu on
+    channels-last bf16 x, W·scale folded into the weights (rounded to bf16)
+    and shift as the bias. Timed only here; the port never calls it."""
+    return torch.cudnn_convolution_relu(x.permute(0, 3, 1, 2), w_folded, shift_bf16,
+                                        [1, 1], [1, 1], [1, 1], 1)
+
+
+def check_block1_sass():
+    """The block-1 kernels' design as their SASS shows it: every kernel
+    function issues wgmma (HGMMA) fed by TMA (UTMALDG) or bulk copies
+    (UBLKCP), and none mma.sync (HMMA)."""
+    from l3embedding_torch.tools import block1_spike
+
+    sass = block1_spike.library_sass()
+    log(f"block1_conv SASS (cuobjdump -sass): {json.dumps(sass)}")
+    names = " ".join(sass)
+    ok = "block1_gemm" in names and "block1_conv" in names and all(
+        ops["HGMMA"] > 0 and ops["UTMALDG"] + ops["UBLKCP"] > 0 and ops["HMMA"] == 0
+        for ops in sass.values())
+    if not ok:
+        raise SystemExit("the block-1 kernels are not wgmma kernels fed by TMA")
+
+
 def phase_block1(dev):
     """The block-1 probe kernels against their plain versions: the GEMM
     probe at N = 64 and 128 (reps 64), the fused conv+BN+ReLU at the vision
     conv1_2 shape (128, 224, 224, 64) and the linear types' audio conv1_2
-    shape (128, 257, 197, 64); times beside cuBLAS / cuDNN and the bound.
-    Then the main path: the probe tool's `all` at batch 128."""
+    shape (128, 257, 197, 64); times beside cuBLAS / cuDNN (conv alone,
+    conv + eager epilogue, and the one-call cudnn_convolution_relu) and the
+    bound, with the share of bound at every shape. Then the main path: the
+    probe tool's `all` at batch 128."""
     from l3embedding_torch.ops import block1_kernel as bk
     from l3embedding_torch.tools import block1_spike
 
+    check_block1_sass()
     results = {}
     reps = 64
     for n_out in (64, 128):
@@ -395,45 +423,67 @@ def phase_block1(dev):
         block1_gate(f"{what} cuBLAS yardstick", library_gemm(a, w, s, b, reps),
                     bk.gemm_probe_ref(a, w, s, b, reps), rel_gate=0.05, cos_gate=0.9999)
         ms = graph_ms(lambda: bk.gemm_probe(a, w, s, b, reps))
+        events_ms = cuda_ms(lambda: bk.gemm_probe(a, w, s, b, reps))
         plain_ms = cuda_ms(lambda: bk.gemm_probe_ref(a, w, s, b, reps), iters=3, warmup=1)
         library_ms = graph_ms(lambda: library_gemm(a, w, s, b, reps))
         m, k = a.shape
         bound_ms, bound_by = block1_bound_ms(2.0 * m * k * n_out * reps, (m * k + k * n_out + m * n_out) * 2 + 2 * n_out * 4)
-        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuBLAS matmul x{reps} + "
-            f"epilogue) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); device times "
-            f"from CUDA-graph replay except plain")
+        log(f"{what}: kernel {ms:.4f} ms ({events_ms:.4f} by CUDA events), plain {plain_ms:.4f} ms, "
+            f"library (cuBLAS matmul x{reps} + epilogue) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound; device times from CUDA-graph "
+            f"replay except plain and events")
         if n_out == 64:
             results["block1_gemm"] = {True: dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                                 bound_ms=bound_ms, bound_by=bound_by)}
+                                                 bound_ms=bound_ms, bound_by=bound_by, events_ms=events_ms)}
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    conv = {}
     for shape_name, (batch, h, wd) in (("vision", (128, 224, 224)), ("audio", (128, 257, 197))):
         x = (torch.randn(batch, h, wd, 64, device=dev, generator=gen) * 0.1).to(torch.bfloat16)
         wt = (torch.randn(576, 64, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
         scale = torch.rand(64, device=dev, generator=gen) + 0.5
         shift = torch.randn(64, device=dev, generator=gen) * 0.1
         w_cl = wt.reshape(3, 3, 64, 64).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        w_folded = (w_cl.float() * scale[:, None, None, None]).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        shift_bf16 = shift.to(torch.bfloat16)
         what = f"block1_conv {shape_name} conv1_2 ({batch}, {h}, {wd}, 64)"
         want = bk.conv3x3_bn_relu_ref(x, wt, scale, shift)
         max_abs = block1_gate(what, bk.conv3x3_bn_relu(x, wt, scale, shift), want)
         with torch.backends.cudnn.flags(enabled=True, benchmark=True, allow_tf32=False):
             block1_gate(f"{what} cuDNN yardstick", block1_spike.cudnn_conv_bn_relu(x, w_cl, scale, shift),
                         want, rel_gate=0.05, cos_gate=0.9999)
-            del want
-            library_ms = cuda_ms(lambda: block1_spike.cudnn_conv_bn_relu(x, w_cl, scale, shift))
+            try:
+                one_call = cudnn_conv_relu_folded(x, w_folded, shift_bf16)
+            except RuntimeError as e:  # recorded, and the conv alone stays the yardstick
+                log(f"{what}: torch.cudnn_convolution_relu refused: {e!r}"[:400])
+                one_call = None
+            refused = one_call is None
+            if not refused:
+                block1_gate(f"{what} cudnn_convolution_relu yardstick", one_call.permute(0, 2, 3, 1), want,
+                            rel_gate=0.05, cos_gate=0.9999)
+            del want, one_call
+            eager_ms = cuda_ms(lambda: block1_spike.cudnn_conv_bn_relu(x, w_cl, scale, shift))
             conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1))
+            one_call_ms = None if refused else cuda_ms(lambda: cudnn_conv_relu_folded(x, w_folded, shift_bf16))
         ms = cuda_ms(lambda: bk.conv3x3_bn_relu(x, wt, scale, shift))
         plain_ms = cuda_ms(lambda: bk.conv3x3_bn_relu_ref(x, wt, scale, shift), iters=3, warmup=1)
         n_px = batch * h * wd
         bound_ms, bound_by = block1_bound_ms(2.0 * n_px * 576 * 64, 2 * n_px * 64 * 2 + 576 * 64 * 2 + 2 * 64 * 4)
-        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuDNN bf16 channels-last "
-            f"conv + epilogue) {library_ms:.4f} ms (conv alone {conv_ms:.4f} ms), bound {bound_ms:.4f} ms "
-            f"({bound_by})")
-        if shape_name == "vision":
-            results["block1_conv"] = {True: dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                                 bound_ms=bound_ms, bound_by=bound_by)}
+        one_call_txt = f"{one_call_ms:.4f} ms" if one_call_ms is not None else "refused"
+        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: cudnn_convolution_relu "
+            f"(one call, W·scale folded) {one_call_txt}, cuDNN bf16 channels-last conv alone "
+            f"{conv_ms:.4f} ms, conv + eager epilogue {eager_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound")
+        conv[shape_name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                library_ms=one_call_ms if one_call_ms is not None else conv_ms,
+                                library_conv_ms=conv_ms, library_eager_ms=eager_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
         del x
         torch.cuda.empty_cache()
+    audio = conv["audio"]
+    results["block1_conv"] = {True: dict(conv["vision"], audio_ms=audio["ms"], audio_bound_ms=audio["bound_ms"],
+                                         audio_library_ms=audio["library_ms"])}
 
     variants, counts = main_path(lambda: block1_spike.main(["all", "--batch", "128", "--steps", "5"]))
     log(f"block1_spike all --batch 128: launches {dict(counts)}")

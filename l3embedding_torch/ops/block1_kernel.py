@@ -14,7 +14,17 @@ The CUDA source is ``l3embedding_torch/csrc/block1_conv.cu``; ``cuda_build``
 compiles it with ``nvcc`` for ``sm_90a`` at first use. On an H100 the GEMM
 probe is bound by operations (16.9 GFLOP at 64 reps, ~17 µs) and the conv at
 (128, 224, 224, 64) by both limits at once (474 GFLOP, ~0.48 ms; 1.64 GB of
-x and y, ~0.49 ms).
+x and y, ~0.49 ms). Both are ``wgmma`` kernels fed by TMA with the 128-byte
+swizzle, one operand held in registers for the kernel's life. The conv takes
+the product transposed (64 output channels × TILE_W pixels): W^T is the
+register operand, loaded once per CTA, and the input slab is read through
+descriptors that start at each tap's shifted pixel. It is warp specialised:
+a producer warpgroup copies each (TILE_H + 2) × (TILE_W + 2) input slab with one
+4-D TMA load (zeros outside the image) into a STAGES-deep mbarrier ring, two
+consumer warpgroups take the tiles in turn and store each through a
+swizzled staging tile with one TMA store. The GEMM keeps
+its 64-row A tile in registers for every rep and splits the reps over a
+cluster of GEMM_SPLIT CTAs.
 
 The conv weight is ``(576, 64)`` bf16 with rows in (dy, dx, ci) order, the
 im2col column order of the spike (``compat.from_jax.block1_conv_from_jax``
@@ -37,6 +47,20 @@ from . import cuda_build
 
 C = 64
 K_DIM = 9 * C
+
+# The kernels' work split, as csrc/block1_conv.cu fixes it (the CPU tests
+# model the schedule with these and check them against the source): conv
+# output tiles of TILE_H rows × TILE_W columns (one wgmma N a row; 224 =
+# 4 × 56), STAGES slab buffers, the 128-byte swizzle span; the GEMM's 64-row
+# tiles, each over a cluster of GEMM_SPLIT CTAs that share its reps, K in
+# passes of GEMM_K_PASS.
+TILE_H, TILE_W = 4, 56
+STAGES = 3
+SWIZZLE_BYTES = 128
+GEMM_M_TILE = 64
+GEMM_SPLIT = 2
+GEMM_K_PASS = 576
+
 
 # Launches of the CUDA kernels, by kernel ("block1_gemm", "block1_conv"):
 # one per wrapper call on a CUDA tensor. LAUNCHES.clear() resets them.

@@ -123,6 +123,21 @@ def _check_cfg(cfg: MelConfig) -> None:
         raise NotImplementedError("the fused mel front-end implements power_melgram=1.0")
 
 
+def check_kernel_cfg(cfg: MelConfig, fast: bool) -> None:
+    """Raise ValueError for a configuration the CUDA kernel does not take,
+    before any launch: n_mels 128 or 256; an even hop (the kernel reads each
+    frame's sample pairs as aligned words); n_dft a multiple of 64 in bf16,
+    a power of two in [64, 2048] in f32."""
+    if cfg.n_mels not in (128, 256):
+        raise ValueError(f"melspectrogram_fused: n_mels must be 128 or 256, got {cfg.n_mels}")
+    if cfg.hop % 2:
+        raise ValueError(f"melspectrogram_fused: need an even hop, got hop {cfg.hop}")
+    if fast:
+        dft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
+    else:
+        fft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
+
+
 def melspectrogram_fused(
     x: torch.Tensor, cfg: MelConfig = MelConfig(), fast: bool = False
 ) -> torch.Tensor:
@@ -131,7 +146,12 @@ def melspectrogram_fused(
     On a CUDA tensor: the hand-written kernel, bf16 DFT product (fast) or
     f32 FFT. The batch-global dB mode runs the kernel in amplitude mode and
     takes the batch max with tensor ops. On a CPU tensor: the plain
-    version.
+    version, which takes any configuration.
+
+    The kernel takes n_mels 128 or 256, an even hop, and n_dft a multiple
+    of 64 (fast) or a power of two in [64, 2048] (f32); any other
+    configuration on a CUDA tensor raises ValueError before a launch
+    (check_kernel_cfg).
     """
     _check_cfg(cfg)
     if x.device.type == "cpu":
@@ -143,12 +163,7 @@ def melspectrogram_fused(
             "melspectrogram_fused: need a contiguous (B, n) float32 tensor, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}"
         )
-    if cfg.n_mels not in (128, 256):
-        raise ValueError(f"melspectrogram_fused: n_mels must be 128 or 256, got {cfg.n_mels}")
-    if fast:
-        dft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
-    else:
-        fft_stage.check_n_dft(cfg.n_dft, "melspectrogram_fused")
+    check_kernel_cfg(cfg, fast)
     batch, n = x.shape
     fn, ptrs, args, frames, n_frames, pad_left, _ = _launch(cfg, batch, n, fast, str(x.device))
     out = torch.empty((batch, cfg.n_mels, n_frames), device=x.device, dtype=torch.float32)

@@ -122,6 +122,10 @@ def spectrogram_fused(
     f32 FFT. The batch-global dB mode runs the kernel in amplitude mode and
     takes the batch max with tensor ops. On a CPU tensor: the plain
     version.
+
+    Both take an even hop and n_dft a multiple of 64; the kernel's f32 mode
+    also needs n_dft a power of two in [64, 2048]. Any other configuration
+    raises ValueError before a launch.
     """
     _check_cfg(cfg)
     if x.device.type == "cpu":

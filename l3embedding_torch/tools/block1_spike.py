@@ -19,7 +19,13 @@ spike's FLOP counts) and the device. Times are CUDA events on the card.
 ``--device cpu`` runs the plain versions on the host clock, for the tests;
 those times say nothing about the card.
 
-    python -m l3embedding_torch.tools.block1_spike [cudnn|gemm|fused|all]
+``sass`` builds the kernels' library and prints, for each kernel function
+in it, the count of the instructions that tell its design
+(``cuobjdump -sass``): ``HGMMA`` (wgmma), ``HMMA`` (mma.sync), ``UTMALDG``
+/ ``UTMASTG`` (TMA loads and stores), ``UBLKCP`` (bulk copies), ``LDSM``
+(ldmatrix).
+
+    python -m l3embedding_torch.tools.block1_spike [cudnn|gemm|fused|all|sass]
         [--batch 128] [--steps 20] [--device cuda]
 """
 
@@ -27,6 +33,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
+import subprocess
 import time
 
 import numpy as np
@@ -34,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..compat.from_jax import block1_conv_from_jax
-from ..ops import block1_kernel
+from ..ops import block1_kernel, cuda_build
 
 B_DEF = 128
 H = W = 224
@@ -140,9 +150,38 @@ def bench_fused(batch, steps, device=torch.device("cuda")):
     return _result("hopper_fused_conv_bn_relu", dt, flops, device, max_abs_err=err, rel_err=rel)
 
 
+SASS_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "UBLKCP", "LDSM")
+_KERNEL_NAME = re.compile(r"(block1_\w+?_kernel)(?:ILi(\d+)E)?")
+
+
+def sass_opcodes(text: str) -> dict:
+    """{kernel function: {opcode: count}} for the SASS_OPCODES in
+    ``cuobjdump -sass`` text; a template's argument is kept in the name
+    (``block1_gemm_kernel<64>``)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            m = _KERNEL_NAME.search(line)
+            name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else line.split()[-1]
+            out[name] = dict.fromkeys(SASS_OPCODES, 0)
+        elif name is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPCODES) + r")\b", line):
+                out[name][op] += 1
+    return out
+
+
+def library_sass() -> dict:
+    """sass_opcodes of the built block1_conv library (builds it first)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(cuda_build.build("block1_conv"))],
+                          capture_output=True, text=True, check=True).stdout
+    return sass_opcodes(text)
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("part", nargs="?", default="gemm", choices=["cudnn", "gemm", "fused", "all"])
+    ap.add_argument("part", nargs="?", default="gemm", choices=["cudnn", "gemm", "fused", "all", "sass"])
     ap.add_argument("--batch", type=int, default=B_DEF)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -152,6 +191,9 @@ def main(argv=None) -> list[dict]:
         raise SystemExit("block1_spike: no CUDA device (--device cpu runs the plain versions)")
 
     results = []
+    if args.part == "sass":
+        results.append({"variant": "sass", "functions": library_sass()})
+        print(json.dumps(results[-1]), flush=True)
     if args.part in ("cudnn", "all"):
         results.append(bench_cudnn(args.batch, args.steps, device))
         print(json.dumps(results[-1]), flush=True)

@@ -242,6 +242,35 @@ def test_cuda_f32_kernel_rejects_an_n_dft_its_fft_does_not_take():
     assert not mel_kernel.LAUNCHES
 
 
+@pytest.mark.parametrize("fast", [False, True])
+def test_kernel_config_check_rejects_an_odd_hop(fast):
+    """The check the CUDA branch runs before a launch: an odd hop raises the
+    spectrogram wrapper's "even hop" ValueError (as the C entry point would
+    refuse it), the registry's configurations pass, and the CPU plain version
+    still takes any hop, as the Pallas kernel does."""
+    odd = tfe.MelConfig(hop=241)
+    with pytest.raises(ValueError, match="melspectrogram_fused: need an even hop, got hop 241"):
+        mel_kernel.check_kernel_cfg(odd, fast)
+    for cfg in (tfe.MelConfig(n_mels=256), tfe.MelConfig(n_mels=128)):
+        mel_kernel.check_kernel_cfg(cfg, fast)
+    with pytest.raises(ValueError, match="n_mels must be 128 or 256"):
+        mel_kernel.check_kernel_cfg(tfe.MelConfig(n_mels=64), fast)
+    out = mel_kernel.melspectrogram_fused(torch.zeros(1, 4800), odd, fast=fast)
+    assert out.shape == (1, odd.n_mels, odd.n_frames(4800), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_cuda_kernel_rejects_an_odd_hop_before_a_launch(fast):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.zeros(2, 48000, device="cuda")
+    mel_kernel.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="even hop"):
+        mel_kernel.melspectrogram_fused(x, tfe.MelConfig(hop=241), fast=fast)
+    assert not mel_kernel.LAUNCHES
+
+
 FORBIDDEN = ("jax", "flax", "optax", "l3embedding_tpu")
 
 
