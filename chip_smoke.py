@@ -8,7 +8,13 @@ full width in f32 and bf16), the AVC forward of all five at batch 8,
 get_audio_embedding and get_image_embedding, each against a CPU copy of
 the same weights, and the block-1 probe tool
 (``l3embedding_torch.tools.block1_spike all``) at batch 128; the block-1
-library's SASS must show wgmma fed by TMA and no mma.sync.
+library's SASS must show wgmma fed by TMA and no mma.sync. Then the
+serving side on cnn_L3_melspec2 at full width, f32 and bf16: extraction
+from files (device framing against host framing, bytes uploaded and time
+per file, the file API and CLI) and the service, stream and HTTP server
+(latency percentiles and clips/s under 1, 16 and 64 closed-loop clients).
+Fixtures are made at run time in a temporary directory (stdlib WAV,
+``.npy`` image, ``.npz`` video); nothing is downloaded.
 
     python3 chip_smoke.py
 
@@ -636,6 +642,278 @@ def phase_image(dev):
         raise SystemExit("image embeddings disagree with the CPU copy")
 
 
+GATES = {False: 0.99999, True: 0.999}  # rows of two paths / a CPU copy, by fast
+
+
+def fixture_wav(path: str, seconds: float, sr: int, seed: int) -> None:
+    """A stereo 16-bit WAV of a tone over noise whose level changes every
+    0.37 s (loud and quiet windows, so that the batch-global dB quirk
+    matters), written with the stdlib."""
+    from l3embedding_torch.data.audio_io import write_wav
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    level = rng.uniform(0.02, 0.6, int(np.ceil(seconds / 0.37)))[(t / 0.37).astype(int)]
+    mono = level * (0.5 * np.sin(2 * np.pi * 440 * t) + 0.5 * rng.randn(t.size))
+    stereo = np.stack([mono, 0.7 * mono + 0.05 * rng.randn(t.size)], axis=1)
+    write_wav(path, (np.clip(stereo, -1, 1) * 32767).astype(np.int16), sr)
+
+
+def check_rows(what: str, got: np.ndarray, want: np.ndarray, gate: float) -> float:
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise SystemExit(f"{what}: rows {got.shape} against {want.shape}, or not finite")
+    cos = row_cosines(torch.from_numpy(got), torch.from_numpy(want)).min().item()
+    log(f"{what}: {got.shape}, min cosine {cos:.7f} (>= {gate})")
+    if cos < gate:
+        raise SystemExit(f"{what}: rows disagree")
+    return cos
+
+
+def loudest_window(windows: np.ndarray, dev) -> int:
+    """The window holding the batch's largest mel amplitude: the row that
+    sets the batch-global dB reference (found with the f32 kernel in
+    amplitude mode; a call outside the main paths)."""
+    from l3embedding_torch.ops.frontend import MelConfig
+    from l3embedding_torch.ops.mel_kernel import melspectrogram_fused
+
+    feats = melspectrogram_fused(torch.from_numpy(windows).to(dev), MelConfig(n_mels=256, decibel=False))
+    return int(feats.flatten(1).amax(1).argmax().item())
+
+
+def phase_files(dev):
+    """Extraction from files on cnn_L3_melspec2 at full width, f32 and bf16:
+    embed_file on a 10.3 s stereo 44.1 kHz WAV with device framing and with
+    host framing, db_batch_global off and on: the two paths' rows against
+    each other and against a CPU copy of the weights (rows 0-2 and the
+    loudest window, which together keep the batch-global dB reference),
+    the bytes each path uploads and its host-clock time per file (5 calls
+    after a warm-up); a 0.7 s clip on the host path; then
+    process_audio_file, process_image_file (.npy), process_video_file (.npz)
+    and api.main, whose npz files must have the JAX package's names, keys
+    and shapes."""
+    import tempfile
+
+    from l3embedding_torch import api
+    from l3embedding_torch.data.audio_io import load_audio
+    from l3embedding_torch.embed.extract import EmbeddingExtractor, frame_uniform
+
+    tmp = tempfile.TemporaryDirectory()
+    wav = os.path.join(tmp.name, "clip.wav")
+    fixture_wav(wav, 10.3, 44100, seed=11)
+    audio = load_audio(wav, 48000)
+    windows = frame_uniform(audio)
+    n = windows.shape[0]
+    loud = loudest_window(windows, dev)
+    rows = sorted({0, 1, 2, loud})
+    log(f"files: 10.3 s stereo 44.1 kHz WAV -> {audio.size} samples at 48 kHz, {n} windows "
+        f"(bucket {api._bucket(n)}), loudest window {loud}")
+    short = audio[: int(0.7 * 48000)]
+    for fast in (False, True):
+        mode, kernel = ("bf16" if fast else "f32"), front_end_kernel("cnn_L3_melspec2", fast)
+        for dbg in (False, True):
+            what = f"files melspec2 {mode} db_batch_global={dbg}"
+            ext = EmbeddingExtractor(None, "cnn_L3_melspec2", "short", fast=fast, db_batch_global=dbg, device=dev)
+            got, uploaded = {}, {}
+            for framing in (True, False):
+                ext.device_framing = framing
+                b0 = ext.bytes_uploaded
+                got[framing], counts = main_path(lambda: ext.embed_file(wav))
+                uploaded[framing] = ext.bytes_uploaded - b0
+                if counts[kernel] < 1:
+                    raise SystemExit(f"{what}: device_framing={framing} did not launch {kernel}")
+            check_rows(f"{what}: device framing against host framing", got[True], got[False], GATES[fast])
+            cpu_rows = copy.deepcopy(ext.model).to("cpu")(torch.from_numpy(windows[rows])[:, None, :])
+            check_rows(f"{what}: device framing rows {rows} against a CPU copy", got[True][rows],
+                       cpu_rows.numpy(), 0.999 if fast else 0.9999)
+            log(f"{what}: bytes uploaded per file: device framing {uploaded[True]}, host framing "
+                f"{uploaded[False]} ({uploaded[False] / uploaded[True]:.2f}x)")
+            if not dbg:
+                per_file = {}
+                for framing in (True, False, False, True):  # in turns
+                    ext.device_framing = framing
+                    ext.embed_file(wav)
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        ext.embed_file(wav)
+                    per_file.setdefault(framing, []).append((time.perf_counter() - t0) * 1e3 / 5)
+                log(f"{what}: host-clock time per file (embed_file, 5 calls after a warm-up, in turns "
+                    f"device, host, host, device): device framing {per_file[True][0]:.3f} / "
+                    f"{per_file[True][1]:.3f} ms, host framing {per_file[False][0]:.3f} / "
+                    f"{per_file[False][1]:.3f} ms")
+            b0 = ext.bytes_uploaded
+            short_rows, counts = main_path(lambda: ext.embed_audio(short, device_framing=True))
+            if ext.bytes_uploaded - b0 != 48000 * 4 or counts[kernel] < 1:
+                raise SystemExit(f"{what}: the 0.7 s clip did not take the host path ({ext.bytes_uploaded - b0} B)")
+            check_rows(f"{what}: 0.7 s clip (host path) against embed_windows", short_rows,
+                       ext.embed_windows(frame_uniform(short)), GATES[fast])
+            del ext
+            torch.cuda.empty_cache()
+
+    out_dir = os.path.join(tmp.name, "out")
+    os.makedirs(out_dir)
+    rng = np.random.RandomState(12)
+    image = os.path.join(tmp.name, "image.npy")
+    np.save(image, rng.randint(0, 256, (240, 320, 3), dtype=np.uint8))
+    video = os.path.join(tmp.name, "video.npz")
+    np.savez(video, video=rng.randint(0, 256, (6, 256, 300, 3), dtype=np.uint8),
+             audio=(rng.uniform(-0.4, 0.4, 72000) * 32767).astype(np.int16), sr=48000, fps=3.0)
+    ext = api.load_audio_embedding_model(device=dev)
+    img_model = api.ImageEmbeddingModel(device=dev)
+    out, counts = main_path(lambda: api.process_audio_file(wav, out_dir, "a", model=ext))
+    n_centered = 1 + int(np.ceil((audio.size + 24000 - 48000) / 4800))
+    expect = {out: {"embedding": (n_centered, 512), "timestamps": (n_centered,)}}
+    outs, _ = main_path(lambda: api.process_image_file([image], out_dir, model=img_model))
+    expect[outs[0]] = {"embedding": (8192,)}
+    entry, _ = main_path(lambda: api.process_video_file(video, out_dir, audio_model=ext, image_model=img_model))
+    expect[entry["image"]] = {"embedding": (2, 8192), "timestamps": (2,)}
+    n_video = 1 + int(np.ceil((72000 + 24000 - 48000) / 4800))
+    expect[entry["audio"]] = {"embedding": (n_video, 512), "timestamps": (n_video,)}
+    rc, cli_counts = main_path(lambda: api.main([wav, "--output-dir", out_dir, "--suffix", "cli", "--device", dev]))
+    expect[os.path.join(out_dir, "clip_cli.npz")] = {"embedding": (n_centered, 512), "timestamps": (n_centered,)}
+    names = {os.path.basename(p) for p in expect}
+    if rc != 0 or names != {"clip_a.npz", "image.npz", "video_image.npz", "video_audio.npz", "clip_cli.npz"}:
+        raise SystemExit(f"api files: rc {rc}, names {sorted(names)}")
+    for path, shapes in expect.items():
+        with np.load(path) as data:
+            got = {k: data[k].shape for k in data.files}
+            finite = all(np.isfinite(data[k]).all() for k in data.files)
+        log(f"api {os.path.basename(path)}: {got}")
+        if got != shapes or not finite:
+            raise SystemExit(f"{path}: keys and shapes {got}, expected {shapes}")
+    with np.load(entry["image"]) as data:
+        if not np.allclose(data["timestamps"], [0.0, 1.0]):
+            raise SystemExit(f"video image timestamps {data['timestamps']}")
+    if counts["mel_frontend_f32"] < 1 or cli_counts["mel_frontend_f32"] < 1:
+        raise SystemExit("process_audio_file / api.main did not launch mel_frontend_f32")
+    tmp.cleanup()
+
+
+SERVE_SECONDS = 4.0  # each closed-loop run lasts at least this long,
+SERVE_MIN_REQUESTS = 1000  # and completes at least this many requests (p99 with 10 beyond)
+
+
+def phase_serve(dev):
+    """EmbeddingService on cnn_L3_melspec2, f32 and bf16, under 1, 16 and 64
+    closed-loop client threads sending one-window requests, at
+    pipeline_depth 1 and 2, each for SERVE_SECONDS and at least
+    SERVE_MIN_REQUESTS requests: submit→resolve p50/p95/p99 (each only with
+    10 samples beyond it), clips/s, mean coalesced batch, the host time per
+    batch spent coalescing, dispatching and collecting, and rows against
+    embed_windows; embed_windows' own time at 1, 16 and 64 windows beside
+    it. Then StreamingEmbedder (0.37 s chunks against embed_audio on the
+    whole clip) and the HTTP server on 127.0.0.1:0
+    (/healthz, /statz, /v1/embed, /v1/embed_windows, a stream session, drain
+    and close)."""
+    import json as json_
+    import urllib.request
+
+    from l3embedding_torch.embed.extract import EmbeddingExtractor, _bucket, frame_uniform
+    from l3embedding_torch.embed.http_serve import make_server, serve_forever_in_thread
+    from l3embedding_torch.embed.service import EmbeddingService
+    from l3embedding_torch.embed.stream import StreamingEmbedder
+    from l3embedding_torch.tools.serve_load import closed_loop
+
+    rng = np.random.RandomState(21)
+    payloads = (rng.randn(64, 48000) * 0.2 * rng.uniform(0.05, 1.0, (64, 1))).astype(np.float32)
+    clip = (rng.randn(int(3.3 * 48000)) * 0.1).astype(np.float32)
+    for fast in (False, True):
+        mode, kernel = ("bf16" if fast else "f32"), front_end_kernel("cnn_L3_melspec2", fast)
+        ext = EmbeddingExtractor(None, "cnn_L3_melspec2", "short", fast=fast, device=dev)
+        want = ext.embed_windows(payloads)
+        for batch in (1, 16, 64):  # one call, host clock, to the rows on the host
+            ext.embed_windows(payloads[:batch])
+            t0 = time.perf_counter()
+            for _ in range(20):
+                ext.embed_windows(payloads[:batch])
+            ms = (time.perf_counter() - t0) * 1e3 / 20
+            log(f"serve melspec2 {mode}: embed_windows of {batch} window(s) (bucket {_bucket(batch)}): "
+                f"{ms:.3f} ms per call (host clock, 20 calls), {batch * 1e3 / ms:.1f} windows/s")
+        # 1 client at both depths; 16 and 64 clients at depths 1, 2, 2, 1 in turns.
+        for clients, depths in ((1, (1, 2)), (16, (1, 2, 2, 1)), (64, (1, 2, 2, 1))):
+            for depth in depths:
+                with EmbeddingService(ext, max_batch_size=128, max_latency_ms=5.0, pipeline_depth=depth) as svc:
+                    closed_loop(svc, 4, payloads, seconds=0.0, min_requests=8)  # warm-up
+                    stats, counts = main_path(lambda: closed_loop(
+                        svc, clients, payloads, seconds=SERVE_SECONDS, min_requests=SERVE_MIN_REQUESTS))
+                    if counts[kernel] < 1:
+                        raise SystemExit(f"serve {mode}: the service did not launch {kernel}")
+                    got = np.concatenate([r for r in stats["first"]])
+                    ids = [c % 64 for c in range(clients)]
+                    cos = row_cosines(torch.from_numpy(got), torch.from_numpy(want[ids])).min().item()
+                    pct = ", ".join(f"p{p} {stats[f'p{p}_ms']:.3f} ms" if stats[f"p{p}_ms"] is not None
+                                    else f"p{p} n/a" for p in (50, 95, 99))
+                    log(f"serve melspec2 {mode} depth={depth} clients={clients}: {stats['requests']} requests "
+                        f"in {stats['seconds']:.2f} s: {pct}, {stats['clips_per_s']:.1f} clips/s, mean "
+                        f"coalesced batch {stats['mean_coalesced_batch']:.2f} over {stats['device_batches']} "
+                        f"batches; per batch (host clock) coalescing {stats['coalesce_ms_per_batch']:.3f} ms, "
+                        f"dispatch {stats['dispatch_ms_per_batch']:.3f} ms, collection "
+                        f"{stats['collect_ms_per_batch']:.3f} ms; min cosine vs embed_windows {cos:.7f} "
+                        f"(>= {GATES[fast]})")
+                    if cos < GATES[fast]:
+                        raise SystemExit(f"serve {mode}: service rows disagree with embed_windows")
+                    if svc.stats_snapshot()["errors"]:
+                        raise SystemExit(f"serve {mode}: the service counted errors")
+
+        def stream():
+            s = StreamingEmbedder(ext)
+            step = int(0.37 * 48000)
+            out = [s.feed(clip[i : i + step]) for i in range(0, clip.size, step)] + [s.flush()]
+            return np.concatenate([r for r in out if r.size])
+
+        streamed, counts = main_path(stream)
+        if counts[kernel] < 1:
+            raise SystemExit(f"stream {mode}: did not launch {kernel}")
+        check_rows(f"stream melspec2 {mode}: 0.37 s chunks against embed_audio", streamed,
+                   ext.embed_audio(clip), GATES[fast])
+
+        def http():
+            srv = make_server(ext, "127.0.0.1", 0, max_latency_ms=5.0)
+            serve_forever_in_thread(srv)
+            host, port = srv.server_address[:2]
+            url = f"http://{host}:{port}"
+
+            def post(path, data, headers=None):
+                with urllib.request.urlopen(urllib.request.Request(url + path, data=data, headers=headers or {})) as r:
+                    return r.read(), r.headers
+
+            try:
+                with urllib.request.urlopen(url + "/healthz") as r:
+                    health = json_.load(r)
+                body, _ = post("/v1/embed", json_.dumps({"audio": clip[:96000].tolist(), "hop": 0.5}).encode(),
+                               {"Content-Type": "application/json"})
+                emb = np.asarray(json_.loads(body)["embeddings"], np.float32)
+                raw, headers = post("/v1/embed_windows", payloads[:3].tobytes(), {"X-Num-Windows": "3"})
+                rows = np.frombuffer(raw, "<f4").reshape(3, int(headers["X-Embedding-Dim"]))
+                sid = json_.loads(post("/v1/stream/open", json_.dumps({"hop": 0.1}).encode())[0])["stream_id"]
+                chunks = []
+                for i in range(0, 96000, 17760):
+                    blob, h = post(f"/v1/stream/{sid}/feed", clip[i : min(i + 17760, 96000)].tobytes())
+                    chunks.append(np.frombuffer(blob, "<f4").reshape(int(h["X-Num-Windows"]), health["dim"]))
+                blob, h = post(f"/v1/stream/{sid}/flush", b"")
+                chunks.append(np.frombuffer(blob, "<f4").reshape(int(h["X-Num-Windows"]), health["dim"]))
+                with urllib.request.urlopen(url + "/statz") as r:
+                    statz = json_.load(r)
+                drained = srv.l3_service.drain(timeout=30)
+            finally:
+                srv.shutdown()
+                srv.l3_service.close()
+                srv.server_close()
+            return health, emb, rows, np.concatenate(chunks), statz, drained
+
+        (health, emb, rows, streamed, statz, drained), counts = main_path(http)
+        log(f"http melspec2 {mode}: /healthz {health}; /statz requests {statz['requests']}, "
+            f"p50 {statz['latency_ms_p50']} ms; drained {drained}; launches {dict(counts)}")
+        if health["dim"] != want.shape[1] or statz["requests"] < 1 or not drained or counts[kernel] < 1:
+            raise SystemExit(f"http {mode}: healthz/statz/drain failed or {kernel} not launched")
+        check_rows(f"http melspec2 {mode}: /v1/embed against embed_windows", emb,
+                   ext.embed_windows(frame_uniform(clip[:96000], hop_size=0.5)), GATES[fast])
+        check_rows(f"http melspec2 {mode}: /v1/embed_windows against embed_windows", rows, want[:3], GATES[fast])
+        check_rows(f"http melspec2 {mode}: stream session against embed_audio", streamed,
+                   ext.embed_audio(clip[:96000]), GATES[fast])
+        del ext
+        torch.cuda.empty_cache()
+
+
 def phase_profile(dev):
     """Where one 64-window extractor call spends device time, per model type
     and mode: the top kernels by self device time, and the device's idle
@@ -721,6 +999,8 @@ def main() -> int:
     phase_slice(dev)
     phase_avc(dev)
     phase_image(dev)
+    phase_files(dev)
+    phase_serve(dev)
     phase_profile(dev)
 
     kernels = []

@@ -16,16 +16,25 @@ model (for shape and latency work only). ``input_repr`` in {"linear",
 "mel128", "mel256"} picks the model type (cnn_L3_orig / melspec1 /
 melspec2); images are always 8192-d. Images of any size are min-side
 resized to 256 (PIL bilinear, else nearest) and center-cropped to 224.
+
+Files: ``process_audio_file``, ``process_image_file`` and
+``process_video_file`` write one ``.npz`` per input with openl3's names and
+keys, and ``python -m l3embedding_torch.api FILES... [--device cpu]`` is
+the CLI over them. The int8 artifacts (``int8_artifact=``,
+``--int8-artifact``) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
 
 import numpy as np
 import torch
 
 from .compat.from_jax import vision_from_jax_variables
-from .data.audio_io import pcm2float, resample
-from .data.video_io import scaled_dims
+from .data.audio_io import load_audio, pcm2float, read_via_ffmpeg, resample
+from .data.video_io import _ffprobe_path, probe_video, read_video, scaled_dims
 from .embed.extract import INIT_SEED, EmbeddingExtractor, _bucket, frame_uniform
 from .models.embedding import vision_embedding_fn
 from .training.checkpoints import load_variables
@@ -51,6 +60,14 @@ def _resolve_model_type(input_repr: str, model_type: str | None) -> str:
     return INPUT_REPRS[input_repr]
 
 
+def _refuse_int8(int8_artifact: str | None) -> None:
+    if int8_artifact is not None:
+        raise NotImplementedError(
+            "int8 artifacts are not ported yet (ROADMAP.md Queue 1 item 6); "
+            "use the f32 or bf16 (fast=True) tower"
+        )
+
+
 def load_audio_embedding_model(
     weights_path: str | None = None,
     input_repr: str = "mel256",
@@ -58,11 +75,18 @@ def load_audio_embedding_model(
     *,
     model_type: str | None = None,
     fast: bool = False,
+    int8_artifact: str | None = None,
+    devices=None,
+    device_framing: bool = False,
     device: str | torch.device = "cuda",
 ) -> EmbeddingExtractor:
     """Build the resident extractor `get_audio_embedding` uses. Load once
     and pass as ``model=`` when embedding many arrays. ``fast=True``
-    selects the bf16 tower."""
+    selects the bf16 tower; ``devices`` (the JAX package's ``mesh``) splits
+    every bucket over several devices; ``device_framing`` cuts a clip's
+    windows on the device in ``embed_audio``. ``int8_artifact`` raises
+    NotImplementedError: the int8 tower is not ported yet."""
+    _refuse_int8(int8_artifact)
     if embedding_size not in AUDIO_EMBEDDING_SIZES:
         raise ValueError(
             f"Invalid embedding_size: {embedding_size} "
@@ -73,6 +97,8 @@ def load_audio_embedding_model(
         _resolve_model_type(input_repr, model_type),
         AUDIO_EMBEDDING_SIZES[embedding_size],
         fast=fast,
+        devices=devices,
+        device_framing=device_framing,
         device=device,
     )
 
@@ -239,12 +265,9 @@ class ImageEmbeddingModel:
             frames = 2.0 * (frames.astype(np.float32) / 255.0) - 1.0
         frames = frames.astype(np.float32, copy=False)
         n = frames.shape[0]
-        bucket = _bucket(n)
-        if bucket != n:
-            frames = np.concatenate(
-                [frames, np.zeros((bucket - n,) + frames.shape[1:], np.float32)]
-            )
-        x = torch.from_numpy(frames).to(self.device)
+        # The bucket's zero rows are made on the device; only real rows cross.
+        x = torch.zeros((_bucket(n),) + frames.shape[1:], dtype=torch.float32, device=self.device)
+        x[:n].copy_(torch.from_numpy(np.ascontiguousarray(frames)))
         return self.model(x)[:n].cpu().numpy()
 
 
@@ -291,3 +314,238 @@ def get_image_embedding(
         ts = np.arange(emb.shape[0], dtype=np.float64) / float(frame_rate)
         return emb, ts
     return emb
+
+
+def _out_path(path: str, output_dir: str | None, name: str) -> str:
+    return os.path.join(output_dir or os.path.dirname(path) or ".", name)
+
+
+def _save_npz(out: str, **arrays) -> None:
+    tmp = out + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, out)
+
+
+def process_audio_file(
+    filepath: str | list[str] | tuple[str, ...],
+    output_dir: str | None = None,
+    suffix: str | None = None,
+    model=None,
+    *,
+    overwrite: bool = True,
+    hop_size: float = 0.1,
+    center: bool = True,
+    **model_kwargs,
+):
+    """Embed audio file(s) → ``<name>[_<suffix>].npz`` with keys
+    ``embedding`` and ``timestamps`` (the openl3 on-disk convention).
+
+    Returns the output path (or list of paths). Without ``model``, one is
+    built from ``model_kwargs`` (`load_audio_embedding_model`'s, including
+    ``device``) and shared by every file.
+    """
+    paths = [filepath] if isinstance(filepath, (str, os.PathLike)) else list(filepath)
+    if model is None and paths:
+        model = load_audio_embedding_model(**model_kwargs)
+    target_sr = getattr(model, "sr", TARGET_SR)
+    outputs = []
+    for path in paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out = _out_path(path, output_dir, f"{stem}_{suffix}.npz" if suffix else f"{stem}.npz")
+        if overwrite or not os.path.exists(out):
+            audio = load_audio(path, target_sr)
+            emb, ts = get_audio_embedding(audio, target_sr, model=model, hop_size=hop_size, center=center)
+            _save_npz(out, embedding=emb, timestamps=ts)
+        outputs.append(out)
+    if isinstance(filepath, (str, os.PathLike)):
+        return outputs[0]
+    return outputs
+
+
+def process_image_file(
+    filepath: str | list[str] | tuple[str, ...],
+    output_dir: str | None = None,
+    suffix: str | None = None,
+    model: ImageEmbeddingModel | None = None,
+    *,
+    overwrite: bool = True,
+    **model_kwargs,
+):
+    """Embed image file(s) → ``<name>[_<suffix>].npz`` with key
+    ``embedding`` (openl3's image on-disk convention; one image gives a 1-D
+    vector). ``.npy`` pre-decoded (H, W, 3) uint8 arrays need numpy alone;
+    PNG/JPEG are read with PIL."""
+    paths = [filepath] if isinstance(filepath, (str, os.PathLike)) else list(filepath)
+    if model is None and paths:
+        model = ImageEmbeddingModel(**model_kwargs)
+    outputs = []
+    for path in paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out = _out_path(path, output_dir, f"{stem}_{suffix}.npz" if suffix else f"{stem}.npz")
+        if overwrite or not os.path.exists(out):
+            if path.lower().endswith(".npy"):
+                image = np.load(path, allow_pickle=False)
+            else:
+                from PIL import Image
+
+                image = np.asarray(Image.open(path).convert("RGB"))
+            emb = get_image_embedding(image, model=model)
+            _save_npz(out, embedding=emb[0] if emb.shape[0] == 1 else emb)
+        outputs.append(out)
+    if isinstance(filepath, (str, os.PathLike)):
+        return outputs[0]
+    return outputs
+
+
+def _video_audio_track(path: str, target_sr: int) -> np.ndarray | None:
+    """Mono f32 audio track of a video, or None when the container has no
+    decodable audio (pre-decoded .npy frame dumps, an .npz without an
+    ``audio`` key, no ffmpeg)."""
+    if path.lower().endswith(".npz"):
+        with np.load(path, allow_pickle=False) as obj:
+            if "audio" not in obj.files:
+                return None
+        return load_audio(path, target_sr)
+    if path.lower().endswith(".npy"):
+        return None
+    try:
+        data, _ = read_via_ffmpeg(path, target_sr=target_sr)
+    except (RuntimeError, OSError, subprocess.CalledProcessError):  # no ffmpeg, or a video-only container
+        return None
+    if data.size == 0:
+        return None
+    return pcm2float(data[:, 0])
+
+
+def _video_fps(path: str, source_fps: float | None) -> float:
+    if source_fps is not None:
+        return float(source_fps)
+    if path.lower().endswith(".npz"):
+        with np.load(path, allow_pickle=False) as obj:
+            if "fps" in obj.files:
+                return float(obj["fps"])
+    if not path.lower().endswith((".npy", ".npz")) and _ffprobe_path() is not None:
+        return probe_video(path)[2]
+    return 30.0
+
+
+def process_video_file(
+    filepath: str | list[str] | tuple[str, ...],
+    output_dir: str | None = None,
+    suffix: str | None = None,
+    audio_model=None,
+    image_model: ImageEmbeddingModel | None = None,
+    *,
+    overwrite: bool = True,
+    hop_size: float = 0.1,
+    frame_rate: float = 1.0,
+    source_fps: float | None = None,
+    **model_kwargs,
+):
+    """Embed both modalities of video file(s) → ``<name>_audio[_<suffix>].npz``
+    and ``<name>_image[_<suffix>].npz`` (openl3's convention), each with
+    ``embedding`` and ``timestamps`` keys; returns ``{"audio": path or None,
+    "image": path}`` per input.
+
+    Frames are sampled at ``frame_rate`` fps (source fps from ffprobe, an
+    ``fps`` npz key, or ``source_fps=``; 30 for bare ``.npy`` dumps).
+    Containers without an audio track (``.npy``, an ``.npz`` without
+    ``audio``) give only the image file. ``model_kwargs`` (input_repr,
+    embedding_size, weights_path, device, ...) build the audio model when
+    ``audio_model`` is omitted; the vision model shares input_repr,
+    model_type, weights_path and device.
+    """
+    paths = [filepath] if isinstance(filepath, (str, os.PathLike)) else list(filepath)
+    if image_model is None and paths:
+        image_model = ImageEmbeddingModel(
+            weights_path=model_kwargs.get("weights_path"),
+            input_repr=model_kwargs.get("input_repr", "mel256"),
+            model_type=model_kwargs.get("model_type"),
+            device=model_kwargs.get("device", "cuda"),
+        )
+    outputs = []
+    for path in paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        tag = f"_{suffix}" if suffix else ""
+        out_audio = _out_path(path, output_dir, f"{stem}_audio{tag}.npz")
+        out_image = _out_path(path, output_dir, f"{stem}_image{tag}.npz")
+        entry = {"audio": None, "image": out_image}
+
+        if overwrite or not os.path.exists(out_image):
+            frames = read_video(path)  # an mmap for .npy
+            fps = _video_fps(path, source_fps)
+            step = max(1, int(round(fps / frame_rate)))
+            sampled = np.asarray(frames[::step])  # page in only these
+            emb, ts = get_image_embedding(sampled, frame_rate=fps / step, model=image_model)
+            _save_npz(out_image, embedding=emb, timestamps=ts)
+
+        target_sr = getattr(audio_model, "sr", TARGET_SR)
+        audio = _video_audio_track(path, target_sr)
+        if audio is not None:
+            entry["audio"] = out_audio
+            if overwrite or not os.path.exists(out_audio):
+                if audio_model is None:
+                    audio_model = load_audio_embedding_model(**model_kwargs)
+                emb, ts = get_audio_embedding(audio, target_sr, model=audio_model, hop_size=hop_size)
+                _save_npz(out_audio, embedding=emb, timestamps=ts)
+        outputs.append(entry)
+    if isinstance(filepath, (str, os.PathLike)):
+        return outputs[0]
+    return outputs
+
+
+def main(argv=None):
+    """openl3-style CLI: ``python -m l3embedding_torch.api FILES...``."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="l3embedding_torch.api",
+        description="Extract L3 embeddings from audio/image/video files "
+        "(one .npz per input, openl3 on-disk conventions).",
+    )
+    p.add_argument("inputs", nargs="+", help="audio/image/video files")
+    p.add_argument("--modality", choices=["audio", "image", "video"], default="audio")
+    p.add_argument("--weights-path", default=None, help=".ckpt written by the JAX package")
+    p.add_argument("--input-repr", default="mel256", choices=sorted(INPUT_REPRS))
+    p.add_argument("--embedding-size", type=int, default=512, choices=sorted(AUDIO_EMBEDDING_SIZES))
+    p.add_argument("--model-type", default=None, help="registry name override (e.g. tiny_L3)")
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--suffix", default=None)
+    p.add_argument("--hop-size", type=float, default=0.1)
+    p.add_argument("--no-centering", action="store_true")
+    p.add_argument("--video-frame-rate", type=float, default=1.0, help="frames/sec to embed from videos")
+    p.add_argument("--fast", action="store_true", help="bf16 tower")
+    p.add_argument("--int8-artifact", default=None,
+                   help="calibrated int8 deployment artifact (not ported yet: raises)")
+    p.add_argument("--no-overwrite", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for the plain versions)")
+    args = p.parse_args(argv)
+
+    _refuse_int8(args.int8_artifact)
+    common = dict(output_dir=args.output_dir, suffix=args.suffix, overwrite=not args.no_overwrite)
+    if args.modality == "image":
+        outs = process_image_file(
+            list(args.inputs), weights_path=args.weights_path, input_repr=args.input_repr,
+            model_type=args.model_type, device=args.device, **common)
+    elif args.modality == "video":
+        entries = process_video_file(
+            list(args.inputs), hop_size=args.hop_size, frame_rate=args.video_frame_rate,
+            weights_path=args.weights_path, input_repr=args.input_repr,
+            embedding_size=args.embedding_size, model_type=args.model_type,
+            fast=args.fast, int8_artifact=args.int8_artifact, device=args.device, **common)
+        outs = [o for e in entries for o in (e["audio"], e["image"]) if o]
+    else:
+        model = load_audio_embedding_model(
+            args.weights_path, args.input_repr, args.embedding_size,
+            model_type=args.model_type, fast=args.fast,
+            int8_artifact=args.int8_artifact, device=args.device)
+        outs = process_audio_file(
+            list(args.inputs), model=model, hop_size=args.hop_size,
+            center=not args.no_centering, **common)
+    for out in outs:
+        print(out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
