@@ -13,8 +13,15 @@ serving side on cnn_L3_melspec2 at full width, f32 and bf16: extraction
 from files (device framing against host framing, bytes uploaded and time
 per file, the file API and CLI) and the service, stream and HTTP server
 (latency percentiles and clips/s under 1, 16 and 64 closed-loop clients).
+Last, the training side (phase_train) on cnn_L3_melspec2 at full width, f32
+and bf16: the port's epoch cycle (train steps, eval steps, the four
+checkpoint roles, the history files; through train() on an h5 corpus where
+h5py is installed, else on the same batches in memory), the trained
+checkpoint loaded into EmbeddingExtractor, one step against the same step
+on a CPU copy, 10 steps on one batch whose loss must fall, and the step
+time, pairs/s, peak memory and a profile at batch 64.
 Fixtures are made at run time in a temporary directory (stdlib WAV,
-``.npy`` image, ``.npz`` video); nothing is downloaded.
+``.npy`` image, ``.npz`` video, h5 corpus); nothing is downloaded.
 
     python3 chip_smoke.py
 
@@ -34,7 +41,7 @@ import os
 import subprocess
 import sys
 import time
-from collections import Counter
+from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -934,22 +941,289 @@ def phase_profile(dev):
                     ext.embed_windows(windows)
                 wall_ms = (time.perf_counter() - t0) * 1e3 / reps
 
-            def dev_us(e):
-                return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            log_profile(f"profile {model_type} fast={fast}", prof, reps, wall_ms,
+                        f"{BATCH * 1e3 / wall_ms:.1f} windows/s under the profiler", "call")
 
-            # Device-side events only (kernels, copies): the host-side aten ops
-            # carry their kernels' time too and would count it twice.
-            events = [
-                e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-            ]
-            total_ms = sum(dev_us(e) for e in events) / 1e3 / reps
-            log(f"profile {model_type} fast={fast}: wall {wall_ms:.3f} ms/call "
-                f"({BATCH * 1e3 / wall_ms:.1f} windows/s under the profiler), device busy "
-                f"{total_ms:.3f} ms/call, idle share {max(0.0, 1 - total_ms / wall_ms):.3f}")
-            for e in sorted(events, key=dev_us, reverse=True)[:8]:
-                ms = dev_us(e) / 1e3 / reps
-                log(f"  {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%  {e.key[:90]}")
+
+def log_profile(what: str, prof, reps: int, wall_ms: float, rate: str, unit: str) -> None:
+    """Device busy time per `unit` and the idle share of the wall time, then
+    the top 8 device events by time. Busy time is the union of the
+    intervals of the device's own events (kernels, copies, sets): the
+    host-side aten ops carry their kernels' time too, and the device-side
+    ranges of record_function annotations span their kernels and the gaps
+    between them, so both are left out. The shares are of the summed event
+    time."""
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in device if not getattr(e, "is_user_annotation", False)]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+    busy_ms = busy_us / 1e3 / reps
+    sum_ms = sum(by_name.values()) / 1e3 / reps
+    log(f"{what}: wall {wall_ms:.3f} ms/{unit} ({rate}), device busy {busy_ms:.3f} ms/{unit} "
+        f"(union of {len(events)} device events, whose times sum to {sum_ms:.3f}; "
+        f"{len(device) - len(events)} annotation ranges left out), idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]:
+        ms = us / 1e3 / reps
+        log(f"  {ms:8.3f} ms  {100 * ms / sum_ms:5.1f}%  {name[:90]}")
+
+
+TRAIN_MODEL = "cnn_L3_melspec2"
+TRAIN_BATCH = 16  # the train() run: one epoch of 4 steps, 2 validation batches
+CMP_BATCH = 4  # the card step against the CPU step
+TIMING_BATCH = 64
+
+
+def avc_batches(n: int, batch: int, seed: int) -> list[dict]:
+    """n batches in the storage dtypes of the 02 corpus (uint8 video, int16
+    audio, one-hot labels), made in bulk from a seed."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 2, (n, batch))
+    video = rng.randint(0, 256, (n, batch, 224, 224, 3), dtype=np.uint8)
+    audio = (rng.randn(n, batch, 1, 48000) * 3000).astype(np.int16)
+    return [{"video": video[i], "audio": audio[i],
+             "label": np.stack([labels[i], 1 - labels[i]], 1).astype(np.float32)} for i in range(n)]
+
+
+def write_h5_corpus(path: str, batches: list[dict]) -> None:
+    """One h5 batch file per batch, as 02_generate_samples.py writes them."""
+    import h5py
+
+    os.makedirs(path, exist_ok=True)
+    for i, b in enumerate(batches):
+        with h5py.File(os.path.join(path, f"blob_{i}.h5"), "w") as f:
+            for k, v in b.items():
+                f.create_dataset(k, data=v)
+
+
+def one_train_step(dtype, device, batch: dict, tf32_probe: bool = False):
+    """One step of a fresh seeded state → (metrics, grads, running stats,
+    TF32 flags seen during the backward), tensors as f64 on the CPU."""
+    from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training.state import create_train_state
+    from l3embedding_torch.training.steps import make_train_step
+
+    state = create_train_state(build_model(TRAIN_MODEL), torch.Generator().manual_seed(5), 1e-4,
+                               dtype, device)
+    seen = []
+    if tf32_probe:
+        w = state.model.audio_model.embedding_conv.weight
+        w.register_hook(lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+    state, metrics = make_train_step()(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    grads = {n: p.grad.double().cpu() for n, p in state.model.named_parameters()}
+    stats = {n: b.double().cpu() for n, b in state.model.named_buffers() if "running" in n}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats, seen
+
+
+def leaf_cosines(a: dict, b: dict, skip=()) -> dict:
+    return {n: torch.nn.functional.cosine_similarity(a[n].flatten(), b[n].flatten(), dim=0).item()
+            for n in a if n not in skip}
+
+
+def phase_train(dev):
+    """The AVC training path on cnn_L3_melspec2 at full width, f32 and bf16:
+    the port's epoch cycle (train steps, eval steps, the four checkpoint
+    roles, the history files) at batch 16 for one epoch of 4 steps and 2
+    validation batches, through train() on an h5 corpus where h5py is
+    installed and through run_epochs on the same batches in memory where it
+    is not; the best-valid-loss checkpoint loaded into EmbeddingExtractor;
+    one step at batch 4 against the same step on a CPU copy (gradients and
+    BN statistics); 10 steps on one batch, whose loss must fall; then the
+    step time, pairs/s and peak memory at batch 64 and a profile of 3
+    steps. TF32 is set to torch's defaults for the phase: the f32 step must
+    keep it off itself, backward included."""
+    import importlib.util
+    import itertools
+    import pickle
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from l3embedding_torch.compat.from_jax import bn_fed_biases
+    from l3embedding_torch.embed.extract import EmbeddingExtractor
+    from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training import checkpoints, loop
+    from l3embedding_torch.training.state import create_train_state
+    from l3embedding_torch.training.steps import make_eval_step, make_train_step
+
+    spec = build_model(TRAIN_MODEL)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    prev_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        train_b = avc_batches(4, TRAIN_BATCH, seed=21)
+        valid_b = avc_batches(2, TRAIN_BATCH, seed=22)
+        have_h5 = importlib.util.find_spec("h5py") is not None
+        if have_h5:
+            write_h5_corpus(os.path.join(tmp.name, "train_h5"), train_b)
+            write_h5_corpus(os.path.join(tmp.name, "valid_h5"), valid_b)
+        else:
+            log("train: h5 reader not exercised on the card: h5py is not installed on this "
+                "machine; the epoch cycle (run_epochs) runs on the same batches in memory")
+        window = (np.random.RandomState(23).randn(1, 48000) * 0.2).astype(np.float32)
+        for compute_dtype, dtype in dtypes.items():
+            fast = dtype == torch.bfloat16
+            out = os.path.join(tmp.name, f"runs_{compute_dtype}")
+            t0 = time.perf_counter()
+            if have_h5:
+                (model_dir, hist), counts = main_path(lambda: loop.train(
+                    os.path.join(tmp.name, "train_h5"), os.path.join(tmp.name, "valid_h5"), out,
+                    num_epochs=1, train_epoch_size=4, validation_epoch_size=2,
+                    train_batch_size=TRAIN_BATCH, validation_batch_size=TRAIN_BATCH,
+                    model_type=TRAIN_MODEL, compute_dtype=compute_dtype, checkpoint_interval=1,
+                    disable_logging=True, device=dev))
+                expected = {"config.json", "model.json"}
+            else:
+                model_dir = os.path.join(out, "run")
+                os.makedirs(model_dir)
+                state = create_train_state(spec, torch.Generator().manual_seed(20), 1e-4, dtype, dev)
+                (hist, preempted), counts = main_path(lambda: loop.run_epochs(
+                    state, make_train_step(), make_eval_step(), model_dir,
+                    itertools.cycle(train_b), lambda: iter(valid_b),
+                    num_epochs=1, train_epoch_size=4, validation_epoch_size=2,
+                    train_batch_size=TRAIN_BATCH, checkpoint_interval=1))
+                assert not preempted
+                expected = set()
+            wall = time.perf_counter() - t0
+            expected |= {checkpoints.LATEST, checkpoints.BEST_VALID_ACC, checkpoints.BEST_VALID_LOSS,
+                         checkpoints.PERIODIC_FMT.format(epoch=0), "history_csvlog.csv",
+                         "history_checkpoint.pkl", "history.pkl"}
+            files = set(os.listdir(model_dir))
+            if files != expected:
+                raise SystemExit(f"train {compute_dtype}: run dir holds {sorted(files)}, want {sorted(expected)}")
+            with open(os.path.join(model_dir, "history.pkl"), "rb") as f:
+                saved = pickle.load(f)
+            row = [saved[k][0] for k in ("loss", "acc", "val_loss", "val_acc")]
+            if not np.isfinite(row).all():
+                raise SystemExit(f"train {compute_dtype}: non-finite history {row}")
+            kernel = f"mel_frontend_{'bf16' if fast else 'f32'}"
+            if counts[kernel] < 1:
+                raise SystemExit(f"train {compute_dtype} did not go through {kernel}")
+            ckpt = os.path.join(model_dir, checkpoints.BEST_VALID_LOSS)
+            log(f"train {TRAIN_MODEL} {compute_dtype} batch {TRAIN_BATCH}: 4 steps + 2 eval, "
+                f"wall {wall:.2f} s (epoch {saved['epoch_times'][0]:.2f} s), loss {row[0]:.4f} "
+                f"acc {row[1]:.3f} val_loss {row[2]:.4f} val_acc {row[3]:.3f}, launches {dict(counts)}, "
+                f"data wait {1e3 * np.mean(saved['data_wait_times']):.3f} ms/step (first "
+                f"{1e3 * saved['data_wait_times'][0]:.3f}), checkpoints {1e3 * saved['checkpoint_times'][0]:.1f} ms "
+                f"for 4 files of {os.path.getsize(ckpt) / 1e6:.1f} MB, files {sorted(files)}")
+            ext = EmbeddingExtractor(ckpt, TRAIN_MODEL, "short", fast=fast, device=dev)
+            emb, counts = main_path(lambda: ext.embed_windows(window))
+            cpu = EmbeddingExtractor(ckpt, TRAIN_MODEL, "short", fast=fast, device="cpu").embed_windows(window)
+            cos = row_cosines(torch.from_numpy(emb), torch.from_numpy(cpu)).min().item()
+            gate = 0.999 if fast else 0.9999
+            log(f"train {compute_dtype}: {checkpoints.BEST_VALID_LOSS} → EmbeddingExtractor: {emb.shape}, "
+                f"cosine vs CPU extractor {cos:.7f} (>= {gate}), launches {dict(counts)}")
+            if emb.shape != (1, 512) or not np.isfinite(emb).all() or cos < gate or counts[kernel] < 1:
+                raise SystemExit(f"train {compute_dtype}: the trained checkpoint does not embed right")
+
+        # One step on the card against the same step on a CPU copy.
+        batch = avc_batches(1, CMP_BATCH, seed=24)[0]
+        noise = bn_fed_biases(TRAIN_MODEL)
+        ref = {}
+        for compute_dtype, dtype in dtypes.items():
+            ref[compute_dtype] = one_train_step(dtype, "cpu", batch)
+        for compute_dtype, dtype in dtypes.items():
+            fast = dtype == torch.bfloat16
+            m, grads, stats, seen = one_train_step(dtype, dev, batch, tf32_probe=True)
+            m_cpu, g_cpu, s_cpu, _ = ref[compute_dtype]
+            if not fast:
+                if seen != [False]:
+                    raise SystemExit(f"train f32: TF32 on during the backward: {seen}")
+                for n, bn in noise.items():
+                    for g in (grads, g_cpu):
+                        if g[n].abs().max() > 1e-3 * g[bn].abs().max():
+                            raise SystemExit(f"train f32: {n} gradient is not ~0: {g[n].abs().max()}")
+            cos = leaf_cosines(grads, g_cpu, skip=noise)
+            worst = min(cos, key=cos.get)
+            err = max((grads[n] - g_cpu[n]).abs().max().item() for n in cos)
+            bn_cos = leaf_cosines(stats, s_cpu)
+            # The batch's own statistics, from new = 0.99·old + 0.01·batch
+            # (a fresh state: running mean 0, running variance 1).
+            batch_stat = lambda s, n: (s[n] - (0.99 if n.endswith("var") else 0.0)) / 0.01  # noqa: E731
+            stat_err = max(((batch_stat(stats, n) - batch_stat(s_cpu, n)).abs().max()
+                            / batch_stat(s_cpu, n).abs().max()).item() for n in stats)
+            loss_rel = abs(m["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+            log(f"train step card vs CPU {compute_dtype} batch {CMP_BATCH}: loss {m['loss']:.6f} / "
+                f"{m_cpu['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / {m_cpu['acc']:.3f}, "
+                f"gradient leaves min cosine {cos[worst]:.7f} ({worst}), max |d| {err:.3e}; "
+                f"BN statistics min cosine {min(bn_cos.values()):.7f}, batch statistics max relative "
+                f"error {stat_err:.2e}; TF32 in backward {seen}")
+            if fast:
+                # bf16 gradients stray from f32 ones by chance, leaf by leaf
+                # (PERF.md §6, training): the card's bf16 step is held to be
+                # no farther from the CPU's f32 step than 1.5x the CPU's bf16
+                # step, and its batch statistics within 2e-2 of the CPU's
+                # bf16 ones (the gates of tests/test_torch_port_train.py).
+                g32 = ref["float32"][1]
+                d_card = np.mean([1 - c for c in leaf_cosines(grads, g32, skip=noise).values()])
+                d_cpu = np.mean([1 - c for c in leaf_cosines(g_cpu, g32, skip=noise).values()])
+                log(f"train step bf16: mean gradient distance from the CPU f32 step, card {d_card:.4f}, "
+                    f"CPU bf16 {d_cpu:.4f} (card <= 1.5x)")
+                ok = (loss_rel <= 1e-2 and d_card <= 1.5 * d_cpu and stat_err <= 2e-2
+                      and min(bn_cos.values()) >= 0.999)
+            else:
+                ok = (loss_rel <= 1e-4 and cos[worst] >= 0.9999 and stat_err <= 1e-3
+                      and min(bn_cos.values()) >= 0.9999)
+            ok = ok and m["acc"] == m_cpu["acc"]
+            if not ok:
+                raise SystemExit(f"train step {compute_dtype}: the card disagrees with the CPU")
+
+        # Learning signal: 10 steps on one fixed batch.
+        fixed = {k: torch.from_numpy(v).to(dev) for k, v in avc_batches(1, TRAIN_BATCH, seed=25)[0].items()}
+        state = create_train_state(spec, torch.Generator().manual_seed(6), 1e-4, torch.float32, dev)
+        step = make_train_step()
+        losses = []
+        for _ in range(10):
+            state, m = step(state, fixed)
+            losses.append(float(m["loss"] + m["reg_loss"]))
+        log(f"train f32 10 steps on one batch of {TRAIN_BATCH}: loss {' '.join(f'{x:.4f}' for x in losses)}")
+        if not losses[-1] < losses[0]:
+            raise SystemExit("train: the loss on a fixed batch did not fall")
+        del state
+
+        # Step time, pairs/s and peak memory at batch 64, then a profile.
+        big = {k: torch.from_numpy(v).to(dev) for k, v in avc_batches(1, TIMING_BATCH, seed=26)[0].items()}
+        for compute_dtype, dtype in dtypes.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = create_train_state(spec, torch.Generator().manual_seed(7), 1e-4, dtype, dev)
+            times = []
+            for i in range(12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, big)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"train step {TRAIN_MODEL} {compute_dtype} batch {TIMING_BATCH}: median {med:.3f} ms "
+                f"(min {min(times):.3f}, max {max(times):.3f}, 10 steps after 2), "
+                f"{TIMING_BATCH * 1e3 / med:.1f} pairs/s, peak memory {peak:.2f} GiB, loss {float(m['loss']):.4f}")
+            reps = 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    state, m = step(state, big)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            log_profile(f"profile train {compute_dtype} batch {TIMING_BATCH}", prof, reps, wall_ms,
+                        f"{TIMING_BATCH * 1e3 / wall_ms:.1f} pairs/s under the profiler", "step")
+            del state, prof
+            log(f"train timing {compute_dtype} on: " + subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+                 "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        tmp.cleanup()
 
 
 def build_kernels():
@@ -1002,6 +1276,7 @@ def main() -> int:
     phase_files(dev)
     phase_serve(dev)
     phase_profile(dev)
+    phase_train(dev)
 
     kernels = []
     for name, (src, replaces, modes) in KERNELS.items():

@@ -36,9 +36,11 @@ class AVCModel(HeInit):
         self.merge_dense = nn.Linear(vision_model.out_dim + audio_model.out_dim, layer_size)
         self.output_dense = nn.Linear(layer_size, 2)
 
-    def forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, audio: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """→ (B, 2) f32 logits. train=True runs the towers' BatchNorms in
+        train mode (batch statistics, running statistics updated)."""
         # Keras concat order: vision output first.
-        y = torch.cat([self.vision_model(video), self.audio_model(audio)], dim=-1)
+        y = torch.cat([self.vision_model(video, train), self.audio_model(audio, train)], dim=-1)
         with ieee_fp32(y.is_cuda and self.dtype == torch.float32):
             y = torch.relu(_dense(self.merge_dense, y, self.dtype))
             return _dense(self.output_dense, y, self.dtype).float()

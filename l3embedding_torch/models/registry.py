@@ -15,6 +15,8 @@ import torch
 from .avc import AVCModel
 from .towers import L3AudioTower, L3VisionTower, TinyL3AudioTower, TinyL3VisionTower
 
+AUDIO_INPUT_SHAPE = (1, 48000)  # (channels, samples), as the reference feeds it
+VIDEO_INPUT_SHAPE = (224, 224, 3)
 _FULL_POOL_257 = {"original": (8, 8), "short": (32, 24)}
 _FULL_POOL_128 = {"original": (4, 8), "short": (16, 24)}
 
@@ -33,6 +35,8 @@ class ModelSpec:
     final_pool: tuple = (32, 24)
     vision_input_bn: bool = True
     layer_size: int = 128
+    audio_input_shape: tuple = AUDIO_INPUT_SHAPE
+    video_input_shape: tuple = VIDEO_INPUT_SHAPE
     # SAME max-pool sizes over the raw embedding-conv output, per pooling
     # type (reference audio_model.py:461-478).
     audio_embedding_pooling: dict = field(default_factory=dict)

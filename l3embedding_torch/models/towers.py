@@ -3,8 +3,11 @@
 
 NCHW inside; at the public boundary the front-end output, the images and
 the embedding feature maps keep the JAX package's NHWC layout, so the two
-packages compare like with like. Inference only: BatchNorm always uses
-its running statistics (eval mode), with Keras's eps of 1e-3.
+packages compare like with like. BatchNorm follows flax's (Keras's
+momentum 0.99, eps 1e-3): ``train=False`` (the default) normalises with
+the running statistics; ``train=True`` normalises with the batch's
+biased statistics and folds them into the running ones in place (see
+``_bn``). ``module.train()`` / ``.eval()`` do not choose between the two.
 
 Parity quirks kept from the reference:
   * the embedding tap is the raw output of ``{audio,vision}_embedding_layer``,
@@ -35,6 +38,7 @@ from ..ops.mel_kernel import melspectrogram_fused
 from ..ops.spec_kernel import spectrogram_fused
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -43,11 +47,40 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     )
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    y = F.batch_norm(
-        x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        training=False, eps=bn.eps,
-    )
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
+        train: bool = False) -> torch.Tensor:
+    """BatchNorm computed in f32, output rounded to `dtype`.
+
+    train=True is flax's train mode, written out in tensor ops: the batch
+    mean and the biased batch variance as E[x²] − E[x]² clipped at 0
+    (flax's use_fast_variance), ``(x − mean)·(rsqrt(var + eps)·scale) +
+    bias``, and the running statistics updated in place as
+    ``ra = 0.99·ra + 0.01·batch`` with the biased variance (torch's own
+    update uses the unbiased one). This is flax's own arithmetic, so the
+    port's train step follows the JAX package's leaf by leaf. Per layer
+    its error against float64 is of the order of torch's fused kernel's
+    (tests/test_torch_port_train.py::test_bn_train_grads_vs_float64); in a
+    whole cnn_L3_melspec2 step on the CPU it is the nearer to a float64
+    step, as the fused kernel's accuracy there depends on the memory
+    layout (the vision input BN's bias gradient at cosine 0.99960 to
+    float64, against 0.999992 written out).
+    """
+    x = x.float()
+    if not train:
+        y = F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            training=False, eps=bn.eps,
+        )
+        return y.to(dtype)
+    dims = (0, 2, 3)
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
     return y.to(dtype)
 
 
@@ -113,11 +146,12 @@ class ConvBNRelu(nn.Module):
         self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS)
         self.relu_before_bn = relu_before_bn
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                train: bool = False) -> torch.Tensor:
         y = _conv(self.conv, x, dtype)
         if self.relu_before_bn:
-            return _bn(self.bn, torch.relu(y), dtype)
-        return torch.relu(_bn(self.bn, y, dtype))
+            return _bn(self.bn, torch.relu(y), dtype, train)
+        return torch.relu(_bn(self.bn, y, dtype, train))
 
 
 class _L3Trunk(HeInit):
@@ -151,12 +185,15 @@ class _L3Trunk(HeInit):
     def _final_pool(self, y: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Input → raw embedding-conv output, NCHW in the compute dtype."""
         y = self._input(x)
-        y = _bn(self.input_bn, y, self.dtype) if self.input_bn is not None else y.to(self.dtype)
+        if self.input_bn is not None:
+            y = _bn(self.input_bn, y, self.dtype, train)
+        else:
+            y = y.to(self.dtype)
         for i, block in enumerate(self.blocks):
-            y = block(y, self.dtype)
+            y = block(y, self.dtype, train)
             if i in (1, 3, 5):
                 y = self._pool(y)
         return _conv(self.embedding_conv, y, self.dtype)
@@ -169,10 +206,11 @@ class _L3Trunk(HeInit):
         with self._fp32(x):
             return self._trunk(x).float().permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Input → (B, 512) tower output: final BN, ReLU, final pool."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Input → (B, 512) tower output: final BN, ReLU, final pool.
+        train=True runs every BatchNorm in train mode (see ``_bn``)."""
         with self._fp32(x):
-            y = torch.relu(_bn(self.final_bn, self._trunk(x), self.dtype))
+            y = torch.relu(_bn(self.final_bn, self._trunk(x, train), self.dtype, train))
             return nhwc_flatten(self._final_pool(y))
 
 
@@ -260,10 +298,10 @@ class _TinyL3(HeInit):
     def _input(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = self._input(x)
         for conv, bn in zip(self.convs, self.bns):
-            y = F.max_pool2d(torch.relu(_bn(bn, _conv(conv, y, self.dtype), self.dtype)), 3)
+            y = F.max_pool2d(torch.relu(_bn(bn, _conv(conv, y, self.dtype), self.dtype, train)), 3)
         return y
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
@@ -271,9 +309,9 @@ class _TinyL3(HeInit):
         with ieee_fp32(x.is_cuda):
             return self._trunk(x).permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         with ieee_fp32(x.is_cuda):
-            return nhwc_flatten(self._trunk(x))
+            return nhwc_flatten(self._trunk(x, train))
 
 
 class TinyL3AudioTower(_TinyL3):
