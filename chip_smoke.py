@@ -1,7 +1,9 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the three
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the four
 kernel sources (mel and linear spectrogram front ends, block-1 conv and
-GEMM probe) from this checkout, one nvcc each and all at once, holds each
-of the four kernels against its plain PyTorch version, then drives the
+GEMM probe, the int8 conv) from this checkout, one nvcc each and all at
+once, holds each of the five kernels against its plain PyTorch version
+(the int8 conv at every conv shape of the cnn_L3_melspec2 int8 tower),
+then drives the
 port's paths end to end through their user entry points: embedding
 extraction for all five model types (cnn_L3_melspec2 and cnn_L3_orig at
 full width in f32 and bf16), the AVC forward of all five at batch 8,
@@ -13,13 +15,18 @@ serving side on cnn_L3_melspec2 at full width, f32 and bf16: extraction
 from files (device framing against host framing, bytes uploaded and time
 per file, the file API and CLI) and the service, stream and HTTP server
 (latency percentiles and clips/s under 1, 16 and 64 closed-loop clients).
-Last, the training side (phase_train) on cnn_L3_melspec2 at full width, f32
+Then the training side (phase_train) on cnn_L3_melspec2 at full width, f32
 and bf16: the port's epoch cycle (train steps, eval steps, the four
 checkpoint roles, the history files; through train() on an h5 corpus where
 h5py is installed, else on the same batches in memory), the trained
 checkpoint loaded into EmbeddingExtractor, one step against the same step
 on a CPU copy, 10 steps on one batch whose loss must fall, and the step
-time, pairs/s, peak memory and a profile at batch 64.
+time, pairs/s, peak memory and a profile at batch 64. Then int8 extraction
+(phase_int8) on cnn_L3_melspec2: calibration, the gate against the folded
+f32 tower, artifacts, embed_file, the CPU port, the HTTP server on
+--int8-artifact and windows/s beside bf16 and f32; and the 05 corpus CLI
+(phase_corpus) on a dcase2013 corpus of 40 WAVs in f32, bf16, int8 and from
+the int8 artifact.
 Fixtures are made at run time in a temporary directory (stdlib WAV,
 ``.npy`` image, ``.npz`` video, h5 corpus); nothing is downloaded.
 
@@ -36,6 +43,7 @@ paths' runs only).
 from __future__ import annotations
 
 import copy
+import io
 import json
 import os
 import subprocess
@@ -507,20 +515,125 @@ def phase_block1(dev):
     return results
 
 
+PEAK_INT8_TC = 1979e12
+# The int8 tower's convs at 64 windows of cnn_L3_melspec2: (H, W, Cin, Cout,
+# requant epilogue), blocks 0-6 then the embedding conv.
+INT8_CONV_SHAPES = ((256, 199, 1, 64, True), (256, 199, 64, 64, True), (128, 99, 64, 128, True),
+                    (128, 99, 128, 128, True), (64, 49, 128, 256, True), (64, 49, 256, 256, True),
+                    (32, 24, 256, 512, True), (32, 24, 512, 512, False))
+
+
+def int8_conv_bound(batch, h, w, cin, cout, requant) -> tuple[float, float]:
+    """(ops seconds, bytes seconds) of one int8 conv: 2·pixels·9·Cin·Cout
+    operations at the dense int8 tensor-core peak; x, the weights, deq and
+    bias read once and the output written once at the HBM rate."""
+    npix = batch * h * w
+    ops = 2.0 * npix * 9 * cin * cout
+    bytes_ = npix * cin + 9 * cin * cout + 2 * cout * 4 + npix * cout * (1 if requant else 4)
+    return ops / PEAK_INT8_TC, bytes_ / PEAK_HBM
+
+
+def library_int8_conv(x, w_packed, deq, bias, s_next):
+    """im2col (nine shifted views of the zero-padded NHWC input, K padded as
+    the packed weights are) + torch._int_mm + the epilogue in torch ops: the
+    int8 conv's yardstick, timed only here; the port never calls it."""
+    from l3embedding_torch.ops import int8_conv_kernel as ick
+
+    batch, h, w, cin = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)], dim=3)
+    cols = cols.reshape(batch * h * w, 9 * cin)
+    if cols.shape[1] != w_packed.shape[1]:
+        cols = torch.nn.functional.pad(cols, (0, w_packed.shape[1] - cols.shape[1]))
+    acc = torch._int_mm(cols, w_packed.t()).reshape(batch, h, w, -1)
+    if s_next is None:
+        return ick.dequant_epilogue(acc, deq, bias)
+    return ick.requant_epilogue(acc, deq, bias, s_next)
+
+
+def phase_int8_kernel(dev) -> dict:
+    """The int8 conv kernel against its plain version at each conv shape of
+    the cnn_L3_melspec2 int8 tower at 64 windows: int8 outputs equal but for
+    at most 1 LSB on at most 1e-4 of the elements, the f32 epilogue within
+    1e-6 of the largest |value|; kernel ms (CUDA events, 20 calls), plain ms,
+    the library (im2col + torch._int_mm + torch epilogue) and the bound at
+    each shape, then their sums over the tower."""
+    from l3embedding_torch.ops import int8_conv_kernel as ick
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes, max_err = [], 0.0
+    for h, w, cin, cout, requant in INT8_CONV_SHAPES:
+        x = torch.randint(-127, 128, (BATCH, h, w, cin), device=dev, generator=gen, dtype=torch.int8)
+        if cin > 1:
+            x = x.clamp_(min=0)  # the tower's inputs past the first conv are ReLU'd
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=torch.Generator().manual_seed(cin + cout),
+                           dtype=torch.int8)
+        w_packed = ick.pack_weights(wq.numpy()).to(dev)
+        acc_std = (9 * cin) ** 0.5 * 127 * 127 / 3
+        deq = (torch.rand(cout, device=dev, generator=gen) + 0.5) / acc_std
+        bias = torch.randn(cout, device=dev, generator=gen) * 0.1
+        s_next = torch.tensor([2.5 / 127], device=dev) if requant else None
+        got = ick.conv3x3_s8(x, w_packed, deq, bias, s_next)
+        want = ick.conv3x3_s8_ref(x, w_packed, deq, bias, s_next)
+        torch.cuda.synchronize()
+        what = f"int8_conv ({BATCH}, {h}, {w}, {cin}) -> {cout} {'requant' if requant else 'dequant'}"
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if requant:
+            off = (diff > 0).float().mean().item()
+            ok = err <= 1 and off <= 1e-4
+            detail = f"max |d| {err:g} LSB on {off:.2e} of the elements (<= 1 LSB on <= 1e-4)"
+        else:
+            rel = err / want.abs().max().item()
+            ok = rel <= 1e-6
+            detail = f"max |d| {err:.3g}, {rel:.2e} of max |ref| (<= 1e-6)"
+        lib = library_int8_conv(x, w_packed, deq, bias, s_next)
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        log(f"{what}: {detail}; library max |d| {lib_err:g}")
+        if not ok or got.dtype != want.dtype or got.shape != want.shape:
+            raise SystemExit(f"{what}: the kernel disagrees with its plain version")
+        max_err = max(max_err, err)
+        del got, want, lib
+        ms = cuda_ms(lambda: ick.conv3x3_s8(x, w_packed, deq, bias, s_next))
+        plain_ms = cuda_ms(lambda: ick.conv3x3_s8_ref(x, w_packed, deq, bias, s_next), iters=3, warmup=1)
+        library_ms = cuda_ms(lambda: library_int8_conv(x, w_packed, deq, bias, s_next), iters=5, warmup=1)
+        ops_s, bytes_s = int8_conv_bound(BATCH, h, w, cin, cout, requant)
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (im2col + _int_mm + "
+            f"epilogue) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({'operations' if ops_s > bytes_s else 'bytes'}), {100 * bound_ms / ms:.1f} % of bound, "
+            f"{2.0 * BATCH * h * w * 9 * cin * cout / ms / 1e9:.1f} TOP/s")
+        shapes.append(dict(shape=[BATCH, h, w, cin, cout], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, ops_ms=ops_s * 1e3, bytes_ms=bytes_s * 1e3))
+        del x
+        torch.cuda.empty_cache()
+    total = {k: sum(s[k] for s in shapes) for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")}
+    bound_ms = sum(s["bound_ms"] for s in shapes)
+    log(f"int8_conv tower sum over {len(shapes)} convs at B={BATCH}: kernel {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / total['ms']:.1f} % of bound)")
+    return {True: dict(max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
+                       library_ms=total["library_ms"], bound_ms=bound_ms,
+                       bound_by="operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
+                       shapes=shapes)}
+
+
 def main_path(fn):
     """Run one main-path call with every kernel count at 0 just before it;
     add the counts read just after to MAIN_PATH_LAUNCHES and return
     (result, counts)."""
-    from l3embedding_torch.ops import block1_kernel, mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, int8_conv_kernel, mel_kernel, spec_kernel
 
     mel_kernel.LAUNCHES.clear()
     spec_kernel.LAUNCHES.clear()
     block1_kernel.LAUNCHES.clear()
+    int8_conv_kernel.LAUNCHES.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = Counter({f"mel_frontend_{k}": v for k, v in mel_kernel.LAUNCHES.items()})
     counts.update({f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()})
     counts.update({f"{k}_bf16": v for k, v in block1_kernel.LAUNCHES.items()})
+    counts.update({f"int8_conv_{k}": v for k, v in int8_conv_kernel.LAUNCHES.items()})
     MAIN_PATH_LAUNCHES.update(counts)
     return out, counts
 
@@ -1226,30 +1339,292 @@ def phase_train(dev):
         tmp.cleanup()
 
 
+def audio_windows(n: int, seed: int, seconds: float = 1.0) -> np.ndarray:
+    """Audio-like windows (summed random tones + noise, each peak-normalised)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * 48000)) / 48000
+    tones = rng.rand(n, 4, 1) * np.sin(2 * np.pi * rng.uniform(50, 8000, (n, 4, 1)) * t + rng.rand(n, 4, 1) * 6.28)
+    x = tones.sum(1) + 0.1 * rng.randn(n, t.size)
+    return (x / (np.abs(x).max(1, keepdims=True) + 1e-9)).astype(np.float32)
+
+
+def rate(fn, n: int, reps: int = 3) -> float:
+    """n / (host-clock seconds of one fn call, mean of `reps` after a warm-up)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return n * reps / (time.perf_counter() - t0)
+
+
+def phase_int8(dev):
+    """Int8 extraction on cnn_L3_melspec2 'short' at full width: the seeded
+    tower folded and calibrated (amax) on 64 windows, 64 held-out windows
+    embedded with the int8 DFT on and off (and profiled), the min cosine against the folded
+    f32 tower on the card (>= 0.999), the card's rows against the CPU port's
+    from the same artifact, an artifact saved and loaded (identical rows),
+    embed_file on the 10.3 s WAV with and without device framing (identical
+    rows), the HTTP server on --int8-artifact answering /v1/embed_windows;
+    windows/s of int8 (each DFT mode), bf16 and f32 at B = 64; the int8 DFT
+    product (torch._int_mm) and front end timed; then cnn_L3_melspec1 and
+    cnn_L3_orig calibrated and gated at 16 windows."""
+    import tempfile
+    import urllib.request
+
+    from l3embedding_torch.embed import http_serve
+    from l3embedding_torch.embed.extract import EmbeddingExtractor
+    from l3embedding_torch.embed.quantized import QuantizedEmbeddingExtractor
+    from l3embedding_torch.ops import frontend, mel_kernel
+
+    tmp = tempfile.TemporaryDirectory()
+    cal, held = audio_windows(BATCH, seed=31), audio_windows(BATCH, seed=32)
+    exts, rows = {}, {}
+    for dft in (True, False):
+        ext = QuantizedEmbeddingExtractor(None, "cnn_L3_melspec2", "short", dft_int8=dft, device=dev)
+        if dft:
+            amax, counts = main_path(lambda: ext.q.calibrate(cal))
+            log(f"int8 melspec2: calibrated on {BATCH} windows (amax per conv input "
+                f"{np.array2string(amax, precision=3)}), launches {dict(counts)}")
+            if counts["mel_frontend_bf16"] < 1:
+                raise SystemExit("int8 calibration did not run on the bf16 front-end kernel")
+        else:
+            ext.q._set_scales(exts[True].q._act_scales)
+        rows[dft], counts = main_path(lambda: ext.embed_windows(held))
+        want_front = "mel_frontend_bf16" if not dft else None
+        if counts["int8_conv_s8"] != 8 or (want_front and counts[want_front] < 1) or not np.isfinite(rows[dft]).all():
+            raise SystemExit(f"int8 melspec2 dft_int8={dft}: launches {dict(counts)}, or rows not finite")
+        cmin, cmean = ext.q.embedding_cosine(held)
+        ext.calib_cosine = (cmin, cmean)
+        log(f"int8 melspec2 dft_int8={dft}: {rows[dft].shape}, launches {dict(counts)}; cosine against the "
+            f"folded f32 tower on the card: min {cmin:.7f} (>= 0.999), mean {cmean:.7f}")
+        if cmin < 0.999 or rows[dft].shape != (BATCH, 512):
+            raise SystemExit(f"int8 melspec2 dft_int8={dft} misses the 0.999 gate")
+        exts[dft] = ext
+
+    ext = exts[True]
+    art = os.path.join(tmp.name, "melspec2.int8.npz")
+    ext.save_artifact(art)
+    loaded = QuantizedEmbeddingExtractor.load_artifact(art, device=dev)
+    again, counts = main_path(lambda: loaded.embed_windows(held))
+    log(f"int8 artifact ({os.path.getsize(art) / 1e6:.1f} MB) saved and loaded: rows identical "
+        f"{np.array_equal(again, rows[True])}, launches {dict(counts)}")
+    if not np.array_equal(again, rows[True]):
+        raise SystemExit("int8: the loaded artifact's rows differ")
+    cpu = QuantizedEmbeddingExtractor.load_artifact(art, device="cpu")
+    check_rows("int8 melspec2: card rows against the CPU port's from the same artifact (4 windows)",
+               rows[True][:4], cpu.embed_windows(held[:4]), 0.9999)
+
+    wav = os.path.join(tmp.name, "clip.wav")
+    fixture_wav(wav, 10.3, 44100, seed=11)
+    framed = {}
+    for framing in (True, False):
+        loaded.device_framing = framing
+        framed[framing], counts = main_path(lambda: loaded.embed_file(wav))
+        if counts["int8_conv_s8"] < 1:
+            raise SystemExit(f"int8 embed_file device_framing={framing} did not launch int8_conv")
+    same = np.array_equal(framed[True], framed[False])
+    log(f"int8 embed_file 10.3 s WAV: {framed[True].shape}, device framing against host framing identical {same}")
+    if not same:
+        check_rows("int8 embed_file: device framing against host framing", framed[True], framed[False], 0.99999)
+
+    def http():
+        srv = http_serve.make_server(http_serve.build_extractor(http_serve.parse_args(
+            ["--int8-artifact", art, "--device", dev])), "127.0.0.1", 0, max_latency_ms=5.0)
+        http_serve.serve_forever_in_thread(srv)
+        try:
+            host, port = srv.server_address[:2]
+            req = urllib.request.Request(f"http://{host}:{port}/v1/embed_windows", data=held[:3].tobytes(),
+                                         headers={"X-Num-Windows": "3"})
+            with urllib.request.urlopen(req) as r:
+                return np.frombuffer(r.read(), "<f4").reshape(3, int(r.headers["X-Embedding-Dim"]))
+        finally:
+            srv.shutdown()
+            srv.l3_service.close()
+            srv.server_close()
+
+    served, counts = main_path(http)
+    log(f"int8 http --int8-artifact: /v1/embed_windows {served.shape}, launches {dict(counts)}")
+    if counts["int8_conv_s8"] < 1:
+        raise SystemExit("int8 http did not launch int8_conv")
+    check_rows("int8 http /v1/embed_windows against embed_windows", served, rows[True][:3], 0.99999)
+
+    rates = {}
+    for name, e in (("int8 dft_int8=True", exts[True]), ("int8 dft_int8=False", exts[False]),
+                    ("bf16", EmbeddingExtractor(None, "cnn_L3_melspec2", "short", fast=True, device=dev)),
+                    ("f32", EmbeddingExtractor(None, "cnn_L3_melspec2", "short", device=dev))):
+        rates[name] = rate(lambda: e.embed_windows(held), BATCH)
+    log("int8 melspec2 windows/s at B=64 (host clock, mean of 3 after a warm-up): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    from torch.profiler import ProfilerActivity, profile
+
+    for dft in (True, False):
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                exts[dft].embed_windows(held)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        log_profile(f"profile int8 melspec2 dft_int8={dft}", prof, reps, wall_ms,
+                    f"{BATCH * 1e3 / wall_ms:.1f} windows/s under the profiler", "call")
+
+    x = torch.from_numpy(held).to(dev)
+    cfg = frontend.MelConfig(n_mels=256)
+    xq, _ = frontend.quantize_waveform(x)
+    frames = frontend.frame_signal(xq, cfg.n_dft, cfg.hop, cfg.padding).reshape(-1, cfg.n_dft).contiguous()
+    bank_t, _ = frontend.int8_bank_device(cfg.n_dft, str(x.device))
+    m, k, n = frames.shape[0], frames.shape[1], bank_t.shape[0]
+    mm_ms = cuda_ms(lambda: frontend.int8_dft_product(frames, bank_t))
+    mm_bound = max(2.0 * m * k * n / PEAK_INT8_TC, (m * k + k * n + 4 * m * n) / PEAK_HBM) * 1e3
+    fe_ms = cuda_ms(lambda: frontend.melspectrogram_int8dft(x, cfg))
+    bf16_ms = cuda_ms(lambda: mel_kernel.melspectrogram_fused(x, cfg, fast=True))
+    log(f"int8 DFT product torch._int_mm ({m}x{k}) x ({k}x{n}): {mm_ms:.4f} ms (CUDA events, 20 calls), bound "
+        f"{mm_bound:.4f} ms; whole int8-DFT front end {fe_ms:.4f} ms; bf16 mel kernel {bf16_ms:.4f} ms")
+
+    for model_type in ("cnn_L3_melspec1", "cnn_L3_orig"):
+        e = QuantizedEmbeddingExtractor(None, model_type, "short", device=dev)
+        e.q.calibrate(cal[:16])
+        got, counts = main_path(lambda: e.embed_windows(held[:16]))
+        cmin, cmean = e.q.embedding_cosine(held[:16])
+        log(f"int8 {model_type} dft_int8={e.q.dft_int8}: {got.shape}, launches {dict(counts)}, cosine against "
+            f"folded f32 min {cmin:.7f} (>= 0.999), mean {cmean:.7f}")
+        if cmin < 0.999 or counts["int8_conv_s8"] != 8:
+            raise SystemExit(f"int8 {model_type} misses the gate or its launches")
+    del exts, loaded, x, frames
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+
+def corpus_fixture(root: str) -> tuple[str, str]:
+    """A seeded cnn_L3_melspec2 checkpoint in the reference layout and a
+    dcase2013 corpus (2 folds × 10 classes × 2 stdlib WAVs of 2.5 s)."""
+    from l3embedding_torch.data.audio_io import write_wav
+    from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training.checkpoints import save_variables
+
+    model_dir = os.path.join(root, "models", "embedding", "music", "cnn_L3_melspec2", "20240101")
+    os.makedirs(model_dir)
+    model = build_model("cnn_L3_melspec2").module()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    ckpt = os.path.join(model_dir, "model_best_valid_accuracy.ckpt")
+    save_variables(ckpt, model, "cnn_L3_melspec2")
+    data = os.path.join(root, "dcase2013")
+    rng = np.random.RandomState(41)
+    t = np.arange(int(2.5 * 48000)) / 48000
+    for fold in (1, 2):
+        os.makedirs(os.path.join(data, f"fold{fold}"))
+        for ci, cls in enumerate(("bus", "busystreet", "office", "openairmarket", "park", "quietstreet",
+                                  "restaurant", "supermarket", "tube", "tubestation")):
+            for idx in range(2):
+                x = 0.4 * np.sin(2 * np.pi * (500.0 + 2300.0 * ci) * t) + 0.05 * rng.randn(t.size)
+                write_wav(os.path.join(data, f"fold{fold}", f"{cls}{fold}{idx}.wav"), x, 48000)
+    return ckpt, data
+
+
+def phase_corpus(dev):
+    """The port's 05 CLI in process on a seeded dcase2013 corpus (40 files of
+    2.5 s), cnn_L3_melspec2 at full width, hop 0.1, 'original' pooling: f32,
+    --fast, --int8 with --int8-save-artifact, then --int8-artifact on the
+    saved file, all four twice in turns (the second round without one-time
+    costs of the first). Every npz's X of the first round against the
+    in-process extractor of its kind (f32 0.99999, bf16 0.999), the int8 run
+    identical to the artifact run; files/s and windows/s of each run (host
+    clock around the whole CLI)."""
+    import tempfile
+
+    from l3embedding_torch.cli import generate_embedding_samples as cli
+    from l3embedding_torch.embed.extract import EmbeddingExtractor
+
+    tmp = tempfile.TemporaryDirectory()
+    ckpt, data = corpus_fixture(tmp.name)
+    art = os.path.join(tmp.name, "corpus.int8.npz")
+    runs = (("f32", [], "mel_frontend_f32"), ("bf16", ["--fast"], "mel_frontend_bf16"),
+            ("int8", ["--int8", "--int8-save-artifact", art], "int8_conv_s8"),
+            ("int8 artifact", ["--int8-artifact", art], "int8_conv_s8"))
+    trees = {}
+    for round_, (name, flags, kernel) in [(r, run) for r in (1, 2) for run in runs]:
+        out = os.path.join(tmp.name, f"{name.replace(' ', '_')}_{round_}")
+        t0 = time.perf_counter()
+        rc, counts = main_path(lambda: cli.main(["-lmp", ckpt, "-hs", "0.1", "--device", dev, *flags,
+                                                  "dcase2013", data, out]))
+        wall = time.perf_counter() - t0
+        tree = {}
+        top = os.path.join(out, "features", "dcase2013", "l3", "original", "music", "cnn_L3_melspec2")
+        for fold in sorted(os.listdir(top)):
+            if fold.startswith("fold"):
+                for f in sorted(os.listdir(os.path.join(top, fold))):
+                    with np.load(os.path.join(top, fold, f)) as z:
+                        tree[f"{fold}/{f}"] = (z["X"], int(z["y"]))
+        windows = sum(x.shape[0] for x, _ in tree.values())
+        log(f"corpus 05 {name} (round {round_}): rc {rc}, {len(tree)} files, {windows} windows in {wall:.2f} s "
+            f"(the whole CLI: "
+            f"load, {'calibration, ' if name == 'int8' else ''}extraction, npz writes): "
+            f"{len(tree) / wall:.2f} files/s, {windows / wall:.1f} windows/s; launches {dict(counts)}")
+        if rc != 0 or len(tree) != 40 or counts[kernel] < 1:
+            raise SystemExit(f"corpus 05 {name}: rc {rc}, {len(tree)} files, {kernel} launches {counts[kernel]}")
+        trees.setdefault(name, tree)
+    for name, fast in (("f32", False), ("bf16", True)):
+        ext = EmbeddingExtractor(ckpt, "cnn_L3_melspec2", "original", fast=fast, device=dev)
+        worst = 1.0
+        for key, (x, _) in trees[name].items():
+            want = ext.embed_file(os.path.join(data, key.replace(".npz", ".wav")), hop_size=0.1)
+            worst = min(worst, row_cosines(torch.from_numpy(x), torch.from_numpy(want)).min().item())
+        log(f"corpus 05 {name}: every file's X against the in-process extractor: min cosine {worst:.7f} "
+            f"(>= {GATES[fast]})")
+        if worst < GATES[fast]:
+            raise SystemExit(f"corpus 05 {name}: rows disagree with the in-process extractor")
+    worst = min(row_cosines(torch.from_numpy(trees["bf16"][k][0]), torch.from_numpy(x)).min().item()
+                for k, (x, _) in trees["f32"].items())
+    same = all(np.array_equal(trees["int8"][k][0], x) and trees["int8"][k][1] == y
+               for k, (x, y) in trees["int8 artifact"].items())
+    int8_cos = min(row_cosines(torch.from_numpy(trees["int8"][k][0]), torch.from_numpy(x)).min().item()
+                   for k, (x, _) in trees["f32"].items())
+    log(f"corpus 05: bf16 against f32 min cosine {worst:.7f} (>= 0.999); int8 run identical to the artifact run "
+        f"{same}; int8 against f32 min cosine {int8_cos:.7f}")
+    key = sorted(trees["f32"])[0]
+    for name in ("f32", "bf16", "int8"):
+        x, y = trees[name][key]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            np.savez_compressed(io.BytesIO(), X=x, y=y)
+        log(f"corpus 05 {name}: np.savez_compressed of one file's X {x.shape} {(time.perf_counter() - t0) * 100:.2f} "
+            f"ms (host clock, mean of 10)")
+    if worst < 0.999 or not same:
+        raise SystemExit("corpus 05: bf16 misses the gate or the artifact run differs from the int8 run")
+    tmp.cleanup()
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
-    from l3embedding_torch.ops import block1_kernel, cuda_build, mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
 
     t0 = time.perf_counter()
-    names = ("mel_frontend", "spec_frontend", "block1_conv")
+    names = ("mel_frontend", "spec_frontend", "block1_conv", "int8_conv")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, lib in zip(names, pool.map(lambda n: cuda_build.build(n, verbose=True), names)):
             log(f"built {name}: {lib.name}")
     mel_kernel._library()
     spec_kernel._library()
     block1_kernel._library()
+    int8_conv_kernel._library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
 
-# name → (source, TPU kernel it replaces, operand types: True = bf16, False = f32)
+# name → (source, the JAX package's kernel it replaces, operand types). The
+# int8 conv replaces an XLA conv (s8 × s8 → s32), not a Pallas kernel.
 KERNELS = {
     "mel_frontend": ("l3embedding_torch/csrc/mel_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:81",
-                     (True, False)),
+                     ("bf16", "f32")),
     "spec_frontend": ("l3embedding_torch/csrc/spec_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:183",
-                      (True, False)),
-    "block1_gemm": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:115", (True,)),
-    "block1_conv": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:150", (True,)),
+                      ("bf16", "f32")),
+    "block1_gemm": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:115", ("bf16",)),
+    "block1_conv": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:150", ("bf16",)),
+    "int8_conv": ("l3embedding_torch/csrc/int8_conv.cu", "l3embedding_tpu/embed/quantized.py:132", ("s8",)),
 }
+
+
+def by_mode(results: dict) -> dict:
+    """A phase's results keyed by fast (True = bf16, False = f32) → by mode."""
+    return {"bf16" if fast else "f32": v for fast, v in results.items()}
 
 
 def main() -> int:
@@ -1270,6 +1645,8 @@ def main() -> int:
     build_kernels()
     measured = {"mel_frontend": phase_kernel(dev), "spec_frontend": phase_spec_kernel(dev),
                 **phase_block1(dev)}
+    measured = {name: by_mode(r) for name, r in measured.items()}
+    measured["int8_conv"] = {"s8": phase_int8_kernel(dev)[True]}
     phase_slice(dev)
     phase_avc(dev)
     phase_image(dev)
@@ -1277,16 +1654,19 @@ def main() -> int:
     phase_serve(dev)
     phase_profile(dev)
     phase_train(dev)
+    phase_int8(dev)
+    phase_corpus(dev)
 
     kernels = []
     for name, (src, replaces, modes) in KERNELS.items():
-        for fast in modes:
-            key = f"{name}_{'bf16' if fast else 'f32'}"
+        for mode in modes:
+            key = f"{name}_{mode}"
             if MAIN_PATH_LAUNCHES[key] < 1:
                 raise SystemExit(f"{key} was not launched on the main paths")
             kernels.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,
-                            "launches": MAIN_PATH_LAUNCHES[key], **measured[name][fast]})
+                            "launches": MAIN_PATH_LAUNCHES[key], **measured[name][mode]})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

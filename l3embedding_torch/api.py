@@ -20,8 +20,8 @@ resized to 256 (PIL bilinear, else nearest) and center-cropped to 224.
 Files: ``process_audio_file``, ``process_image_file`` and
 ``process_video_file`` write one ``.npz`` per input with openl3's names and
 keys, and ``python -m l3embedding_torch.api FILES... [--device cpu]`` is
-the CLI over them. The int8 artifacts (``int8_artifact=``,
-``--int8-artifact``) are not ported yet and raise NotImplementedError.
+the CLI over them. ``int8_artifact=`` (``--int8-artifact``) serves a
+calibrated int8 artifact of either package (``embed/quantized.py``).
 """
 
 from __future__ import annotations
@@ -60,14 +60,6 @@ def _resolve_model_type(input_repr: str, model_type: str | None) -> str:
     return INPUT_REPRS[input_repr]
 
 
-def _refuse_int8(int8_artifact: str | None) -> None:
-    if int8_artifact is not None:
-        raise NotImplementedError(
-            "int8 artifacts are not ported yet (ROADMAP.md Queue 1 item 6); "
-            "use the f32 or bf16 (fast=True) tower"
-        )
-
-
 def load_audio_embedding_model(
     weights_path: str | None = None,
     input_repr: str = "mel256",
@@ -84,9 +76,15 @@ def load_audio_embedding_model(
     and pass as ``model=`` when embedding many arrays. ``fast=True``
     selects the bf16 tower; ``devices`` (the JAX package's ``mesh``) splits
     every bucket over several devices; ``device_framing`` cuts a clip's
-    windows on the device in ``embed_audio``. ``int8_artifact`` raises
-    NotImplementedError: the int8 tower is not ported yet."""
-    _refuse_int8(int8_artifact)
+    windows on the device in ``embed_audio``. ``int8_artifact`` loads a
+    calibrated int8 artifact (``embed/quantized.py``, either package's)
+    instead, its recorded accuracy gate re-checked at 0.999."""
+    if int8_artifact is not None:
+        from .embed.quantized import QuantizedEmbeddingExtractor
+
+        return QuantizedEmbeddingExtractor.load_artifact(
+            int8_artifact, devices=devices, device_framing=device_framing, device=device
+        )
     if embedding_size not in AUDIO_EMBEDDING_SIZES:
         raise ValueError(
             f"Invalid embedding_size: {embedding_size} "
@@ -516,12 +514,11 @@ def main(argv=None):
     p.add_argument("--video-frame-rate", type=float, default=1.0, help="frames/sec to embed from videos")
     p.add_argument("--fast", action="store_true", help="bf16 tower")
     p.add_argument("--int8-artifact", default=None,
-                   help="calibrated int8 deployment artifact (not ported yet: raises)")
+                   help="calibrated int8 deployment artifact (embed/quantized.py save_artifact output)")
     p.add_argument("--no-overwrite", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for the plain versions)")
     args = p.parse_args(argv)
 
-    _refuse_int8(args.int8_artifact)
     common = dict(output_dir=args.output_dir, suffix=args.suffix, overwrite=not args.no_overwrite)
     if args.modality == "image":
         outs = process_image_file(

@@ -76,6 +76,17 @@ def _bucket(n: int) -> int:
     return int(np.ceil(n / BUCKETS[-1])) * BUCKETS[-1]
 
 
+def replica_devices(devices, device, db_batch_global: bool):
+    """(devices as torch.device or None, the replica devices): `devices`
+    when given, else [device]; only the first under db_batch_global, whose
+    dB reference spans the whole bucket."""
+    devices = None if devices is None else [torch.device(d) for d in devices]
+    if devices is not None and not devices:
+        raise ValueError("devices: need at least one device")
+    replicas = devices or [torch.device(device)]
+    return devices, replicas[:1] if db_batch_global else replicas
+
+
 def split_bucket(n: int, n_devices: int) -> int:
     """The bucket of n windows rounded up to a multiple of the device count,
     so that it splits into equal chunks (which need not be a power of two)."""
@@ -150,16 +161,7 @@ class EmbeddingExtractor:
         device_framing: bool = False,
         device: str | torch.device = "cuda",
     ):
-        self.model_type = model_type
-        self.pooling_type = pooling_type
-        self.sr = sr
-        self.devices = None if devices is None else [torch.device(d) for d in devices]
-        if self.devices is not None and not self.devices:
-            raise ValueError("devices: need at least one device")
-        replicas = self.devices or [torch.device(device)]
-        if db_batch_global:
-            replicas = replicas[:1]  # the dB reference spans the whole bucket
-        self.device = replicas[0]
+        devices, replicas = replica_devices(devices, device, db_batch_global)
         model = audio_embedding_fn(
             model_type,
             pooling_type,
@@ -173,8 +175,19 @@ class EmbeddingExtractor:
                 from_jax_variables(load_variables(weights_path), model_type)
             )
         model = model.eval()
-        self.models = [copy.deepcopy(model).to(d) for d in replicas[1:]]
-        self.models.insert(0, model.to(self.device))
+        models = [copy.deepcopy(model).to(d) for d in replicas[1:]]
+        models.insert(0, model.to(replicas[0]))
+        self._bind(models, replicas, devices, model_type, pooling_type, sr, device_framing)
+
+    def _bind(self, models, replicas, devices, model_type, pooling_type, sr, device_framing):
+        """Hold `models`, one per replica device (each maps (B, 1, n) PCM to
+        (B, dim) rows), and the state every call uses."""
+        self.model_type = model_type
+        self.pooling_type = pooling_type
+        self.sr = sr
+        self.devices = devices
+        self.device = replicas[0]
+        self.models = list(models)
         self.model = self.models[0]
         self._replicas = replicas
         self._streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None for d in replicas]
@@ -253,6 +266,11 @@ class EmbeddingExtractor:
             windows = torch.where(keep, windows, buf.new_zeros(())).contiguous()
             return self._forward_rows([windows], n)
 
+    def _bucket_size(self, n: int) -> int:
+        """Rows a batch of n windows is padded to: its bucket, rounded up to
+        a multiple of the device count with `devices`."""
+        return _bucket(n) if self.devices is None else split_bucket(n, len(self._replicas))
+
     def embed_windows_async(self, windows) -> EmbeddingRows:
         """Dispatch (N, frame_length) windows without synchronising; returns
         an EmbeddingRows handle, whose ``result()`` gives the (N, dim) rows.
@@ -263,8 +281,7 @@ class EmbeddingExtractor:
         windows = np.ascontiguousarray(windows, dtype=np.float32)
         n, width = windows.shape
         k = len(self._replicas)
-        bucket = _bucket(n) if self.devices is None else split_bucket(n, k)
-        chunk = bucket // k
+        chunk = self._bucket_size(n) // k
         chunks = []
         for i, dev in enumerate(self._replicas):
             real = windows[i * chunk : (i + 1) * chunk]

@@ -47,9 +47,9 @@ Run: python -m l3embedding_torch.embed.http_serve MODEL.ckpt \
 
 The JAX server's ``--compilation-cache`` has no counterpart here (PyTorch
 compiles nothing at start-up; the CUDA kernels are built once into
-``build/l3torch_kernels/``) and is left out. The int8 flags (``--int8``,
-``--int8-artifact`` and the calibration options) are accepted and raise
-NotImplementedError: the int8 tower is not ported yet.
+``build/l3torch_kernels/``) and is left out. The int8 flags serve the int8
+tower (``embed/quantized.py``): ``--int8-artifact FILE``, or ``--int8
+--int8-calib DIR`` to calibrate at start (``--int8-save-artifact`` keeps it).
 """
 
 from __future__ import annotations
@@ -389,11 +389,7 @@ def serve_forever_in_thread(server: ThreadingHTTPServer) -> threading.Thread:
     return t
 
 
-INT8_FLAGS = ("--int8", "--int8-calib", "--int8-calib-files", "--int8-min-cosine",
-              "--int8-calib-method", "--int8-artifact", "--int8-save-artifact", "--int8-dft-bf16")
-
-
-def main(argv=None):
+def parse_args(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -412,32 +408,96 @@ def main(argv=None):
     p.add_argument("--mesh", action="store_true",
                    help="replicate the model on every visible card and split "
                         "each window batch over them")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 post-training-quantized tower "
+                        "(embed/quantized.py); requires --int8-calib")
+    p.add_argument("--int8-calib", default=None,
+                   help="directory of representative .wav files used to "
+                        "calibrate int8 activation scales at startup")
+    p.add_argument("--int8-calib-files", type=int, default=32,
+                   help="number of calibration files, sampled evenly "
+                        "across the sorted file list")
+    p.add_argument("--int8-min-cosine", type=float, default=0.999,
+                   help="refuse to serve if the int8 tower's measured min "
+                        "cosine vs the BN-folded f32 tower on the "
+                        "calibration windows is below this. 0 disables the gate")
+    p.add_argument("--int8-calib-method", choices=["amax", "percentile"],
+                   default="amax",
+                   help="clip activation scales at the absolute max or "
+                        "the 99.99th percentile of |activations|")
+    p.add_argument("--int8-artifact", default=None,
+                   help="serve a pre-calibrated int8 artifact (save_artifact "
+                        "output of either package): no f32 checkpoint or "
+                        "calibration wavs needed; the accuracy gate recorded "
+                        "at export is re-checked against --int8-min-cosine")
+    p.add_argument("--int8-save-artifact", default=None,
+                   help="after --int8-calib calibration, export the "
+                        "quantized tower to this .npz so later starts "
+                        "can use --int8-artifact")
+    p.add_argument("--int8-dft-bf16", action="store_true",
+                   help="keep the front end's DFT in bf16 (the front-end "
+                        "kernel) instead of the default s8xs8->s32 stage for "
+                        "mel towers. Artifact loads ignore this: the artifact "
+                        "records the front end it was gated with")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
-    for flag in INT8_FLAGS:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help="int8 serving: not ported yet (raises)")
     args = p.parse_args(argv)
-    used = [f for f in INT8_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: the int8 tower is not ported yet "
-            "(ROADMAP.md Queue 1 item 6); serve the f32 or bf16 (--fast) tower"
-        )
+    if args.int8 and not args.int8_artifact and not args.int8_calib:
+        p.error("--int8 requires --int8-calib DIR (.wav files) or --int8-artifact FILE")
+    return args
 
-    logging.basicConfig(level=logging.INFO)
+
+def build_extractor(args):
+    """The extractor the flags ask for: an int8 artifact, an int8 tower
+    calibrated on --int8-calib (and saved with --int8-save-artifact), or
+    the f32 / bf16 tower."""
+    import glob
+    import os
+
+    from .quantized import QuantizedEmbeddingExtractor
+
     devices = None
     if args.mesh:
         import torch
 
         n = torch.cuda.device_count()
         if n == 0:
-            p.error("--mesh needs at least one visible CUDA device")
+            raise SystemExit("--mesh needs at least one visible CUDA device")
         devices = [f"cuda:{i}" for i in range(n)]
-    extractor = EmbeddingExtractor(
+    gate = args.int8_min_cosine if args.int8_min_cosine > 0 else None
+    if args.int8_artifact:
+        LOGGER.info("loading int8 artifact %s", args.int8_artifact)
+        return QuantizedEmbeddingExtractor.load_artifact(
+            args.int8_artifact, devices=devices, min_cosine=gate, device=args.device)
+    if args.int8:
+        wavs = sorted(glob.glob(os.path.join(args.int8_calib, "**", "*.wav"), recursive=True))
+        if not wavs:
+            raise SystemExit(f"no .wav files under --int8-calib {args.int8_calib}")
+        extractor = QuantizedEmbeddingExtractor(
+            args.weights, args.model_type, args.pooling, devices=devices,
+            dft_int8=False if args.int8_dft_bf16 else None, device=args.device,
+        )
+        # Evenly across the sorted list: a prefix of a class-per-directory
+        # tree would calibrate on one class only.
+        n = min(args.int8_calib_files, len(wavs))
+        calib = wavs[:: max(1, len(wavs) // n)][:n]
+        LOGGER.info("calibrating int8 scales on %d of %d files", len(calib), len(wavs))
+        extractor.calibrate_files(calib, method=args.int8_calib_method, min_cosine=gate)
+        if args.int8_save_artifact:
+            extractor.save_artifact(args.int8_save_artifact)
+        return extractor
+    return EmbeddingExtractor(
         args.weights, args.model_type, args.pooling,
         fast=args.fast, devices=devices, device=args.device,
     )
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    # Logging before the extractor: the int8 paths log the calibration set
+    # and the measured gate while it is built.
+    logging.basicConfig(level=logging.INFO)
+    extractor = build_extractor(args)
     server = make_server(
         extractor, args.host, args.port,
         max_batch_size=args.max_batch_size,
@@ -446,8 +506,8 @@ def main(argv=None):
     )
     LOGGER.info(
         "serving %s/%s embeddings on http://%s:%d (%s)",
-        args.model_type, args.pooling, args.host, args.port,
-        ", ".join(str(d) for d in devices) if devices else args.device,
+        extractor.model_type, extractor.pooling_type, args.host, args.port,
+        ", ".join(str(d) for d in extractor._replicas),
     )
     # Graceful drain on SIGTERM (orchestrators send it before SIGKILL):
     # stop accepting, let in-flight requests finish through the pipelined

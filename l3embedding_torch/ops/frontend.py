@@ -6,7 +6,9 @@
 These are tensor-op versions, run on whatever device their input lies
 on. The model's front end on the card is a hand-written kernel
 (``mel_kernel.py``, ``spec_kernel.py``); these functions are its
-references and the CPU path's building blocks. Waveforms are (B, n_samples) float32 in [-1, 1];
+references and the CPU path's building blocks. ``melspectrogram_int8dft``
+is the int8 tower's front end (the DFT s8 × s8 → s32: ``torch._int_mm`` on
+the card, an exact float64 product on the CPU). Waveforms are (B, n_samples) float32 in [-1, 1];
 outputs are (B, n_mels or n_freq, n_frames, 1), the JAX package's NHWC
 layout.
 """
@@ -159,15 +161,95 @@ def melspectrogram(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tenso
     return to_nhwc_db(m, cfg)
 
 
-def melspectrogram_bf16(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
-    """(B, n) → (B, n_mels, T, 1) with bf16 operands and f32 accumulation
-    in both matmuls (the JAX package's fast XLA front end)."""
-    p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16)
-    mel_t = as_operand(torch.from_numpy(mel_matrix(cfg)).to(x.device), torch.bfloat16)
-    m = as_operand(p, torch.bfloat16) @ mel_t
+def mel_tail_bf16(p: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """(B, T, n_freq) power frames → (B, n_mels, T, 1): the mel product with
+    bf16 operands and f32 accumulation, then power, transpose and dB (the JAX
+    package's ``_mel_tail_bf16``, shared by its bf16 and int8-DFT front ends).
+    TF32 is kept off on the card."""
+    from ..models.towers import ieee_fp32  # towers imports this module
+
+    mel_t = as_operand(torch.from_numpy(mel_matrix(cfg)).to(p.device), torch.bfloat16)
+    with ieee_fp32(p.is_cuda):
+        m = as_operand(p, torch.bfloat16) @ mel_t
     if cfg.power_melgram != 2.0:
         m = torch.sqrt(torch.clamp(m, min=0.0)) ** cfg.power_melgram
     return to_nhwc_db(m, cfg)
+
+
+def melspectrogram_bf16(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """(B, n) → (B, n_mels, T, 1) with bf16 operands and f32 accumulation
+    in both matmuls (the JAX package's fast XLA front end)."""
+    return mel_tail_bf16(power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16), cfg)
+
+
+INT_MM_STEP = 8  # torch._int_mm on the card wants K and N multiples of 8
+
+
+@functools.lru_cache(maxsize=None)
+def stft_basis_int8(n_dft: int, n_win: int | None = None, width: int | None = None):
+    """The fused per-column symmetric int8 DFT bank and its f32 column
+    scales (a copy of the JAX package's ``_stft_basis_int8``): one
+    (width, 2·n_freq) int8 matrix, re columns then im columns, column f
+    quantized with its own scale c[f] = amax(|col|)/127. Rows past n_dft
+    (width defaults to n_dft) are zero."""
+    real, imag = dsp_ref.stft_basis(n_dft, n_win)
+    bank = np.zeros((width or n_dft, real.shape[1] + imag.shape[1]), np.float32)
+    bank[:n_dft] = np.concatenate([real, imag], axis=1)
+    c = (np.maximum(np.abs(bank).max(axis=0), 1e-12) / 127.0).astype(np.float32)
+    return np.clip(np.round(bank / c), -127, 127).astype(np.int8), c
+
+
+@functools.lru_cache(maxsize=None)
+def int8_bank_device(n_dft: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bank^T (N_pad, n_dft) int8, column scales (2·n_freq,) f32) on
+    `device`: the bank transposed, its columns zero-padded to a multiple of
+    INT_MM_STEP (2·1025 = 2050 → 2056 at n_dft 2048), so that ``bank_t.t()``
+    is the column-major right operand torch._int_mm takes."""
+    bank, c = stft_basis_int8(n_dft)
+    n_pad = -(-bank.shape[1] // INT_MM_STEP) * INT_MM_STEP
+    bank_t = np.zeros((n_pad, n_dft), np.int8)
+    bank_t[: bank.shape[1]] = bank.T
+    return torch.from_numpy(bank_t).to(device), torch.from_numpy(c).to(device)
+
+
+def quantize_waveform(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n) f32 → (int8 waveform, (B, 1) f32 scale): one symmetric scale a
+    window, s = max(amax|x|, 1e-6)/127, round half to even, clip ±127."""
+    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-6) / 127.0
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def int8_dft_product(frames: torch.Tensor, bank_t: torch.Tensor) -> torch.Tensor:
+    """(M, n_dft) int8 frames × the int8 bank → (M, N_pad) int32, exact: on
+    the card torch._int_mm (s8 × s8 → s32), on the CPU a float64 product,
+    whose partial sums are exact integers (|sum| ≤ n_dft·127² < 2⁵³)."""
+    if frames.is_cuda:
+        return torch._int_mm(frames, bank_t.t())
+    return (frames.double() @ bank_t.t().double()).to(torch.int32)
+
+
+def melspectrogram_int8dft(x: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """(B, n) → (B, n_mels, T, 1) mel features with the DFT stage s8 × s8 →
+    s32 (port of the JAX package's ``melspectrogram_int8dft``).
+
+    The waveform is quantized per window (``quantize_waveform``) before it
+    is framed, the frames multiply the fused re|im int8 bank, the exact
+    dequant s·c folds into the power (|s·c·z|² = s²·(c·z)²), and the mel
+    product and dB tail are ``mel_tail_bf16``. The JAX package frames in
+    chunks (k·hop = 2178 columns, padded to 2304) against a bank whose rows
+    past n_dft are zero; those columns add nothing, so plain n_dft-wide
+    frames give the same int32 product.
+    """
+    xq, s = quantize_waveform(x.float())
+    frames = frame_signal(xq, cfg.n_dft, cfg.hop, cfg.padding)
+    batch, n_frames = frames.shape[:2]
+    bank_t, c = int8_bank_device(cfg.n_dft, str(x.device))
+    z = int8_dft_product(frames.reshape(batch * n_frames, cfg.n_dft), bank_t)
+    n_freq = cfg.n_dft // 2 + 1
+    z = z[:, : 2 * n_freq].float() * c
+    re, im = z[:, :n_freq], z[:, n_freq:]
+    p = (re * re + im * im).reshape(batch, n_frames, n_freq) * torch.square(s)[..., None]
+    return mel_tail_bf16(p, cfg)
 
 
 def spectrogram(x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig()) -> torch.Tensor:

@@ -68,7 +68,12 @@ class StepTimer:
 
 
 def init_console_logger(logger, verbose=False):
+    """Log to the console; a later call (a CLI run again in one process)
+    replaces the handler an earlier call added instead of adding another."""
+    for h in [h for h in logger.handlers if getattr(h, "l3_console", False)]:
+        logger.removeHandler(h)
     ch = logging.StreamHandler()
+    ch.l3_console = True
     ch.setLevel(logging.DEBUG if verbose else logging.INFO)
     ch.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s"))
     logger.addHandler(ch)

@@ -559,13 +559,22 @@ def test_main_matches_jax(tmp_path, ckpt, capsys, modality):
         _same_npz(o, t)
 
 
-def test_int8_artifact_raises():
-    """The int8 tower is not ported: the argument and the flag raise, and
-    nothing falls back to the f32 tower."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.load_audio_embedding_model(int8_artifact="artifact.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.main(["clip.wav", "--int8-artifact", "artifact.npz", "--device", "cpu"])
+def test_int8_artifact_raises(tmp_path):
+    """int8_artifact= and --int8-artifact load int8 artifacts
+    (tests/test_torch_port_int8.py holds a JAX-written one's rows against
+    JAX's through both); an artifact that records no accuracy gate raises
+    at the default gate, from the argument and from the flag, and nothing
+    falls back to the f32 tower."""
+    from l3embedding_torch.embed.quantized import IntEightAccuracyError, QuantizedEmbeddingExtractor
+
+    ex = QuantizedEmbeddingExtractor(None, "cnn_L3_melspec1", "short", device="cpu")
+    ex.q.calibrate(np.random.RandomState(3).uniform(-0.5, 0.5, (1, SR)).astype(np.float32))
+    art = str(tmp_path / "ungated.npz")
+    ex.save_artifact(art)
+    with pytest.raises(IntEightAccuracyError, match="records no calibration cosine"):
+        api.load_audio_embedding_model(int8_artifact=art, device="cpu")
+    with pytest.raises(IntEightAccuracyError, match="records no calibration cosine"):
+        api.main(["clip.wav", "--int8-artifact", art, "--device", "cpu"])
 
 
 def test_cli_runs_as_a_module(tmp_path, ckpt):

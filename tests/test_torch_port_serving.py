@@ -3,7 +3,8 @@ StreamingEmbedder and the HTTP server, ported case for case from
 ``tests/test_service.py``, and the HTTP replies held against the JAX
 package's server on the same ``.ckpt``.
 
-Left out of the port of that file: the int8 cases and the JAX-only ones —
+Left out of the port of that file: the int8 cases (in
+``test_torch_port_int8.py``) and the JAX-only ones —
 ``test_loopback_staged_device_mode`` and
 ``test_bench_serving_ceiling_and_artifact`` (``tools/bench_serving.py``'s
 device-staged jax.Array modes), ``test_export_embedding_model_roundtrip``
@@ -352,12 +353,17 @@ def test_http_serve_cli_sigterm_graceful_shutdown():
             proc.communicate()
 
 
-@pytest.mark.parametrize("flags", [["--int8"], ["--int8-artifact", "artifact.npz"]])
-def test_http_serve_int8_flags_raise(flags):
-    """The int8 flags are accepted and raise: no silent f32 serving."""
+@pytest.mark.parametrize("flags, error", [
+    pytest.param(["--int8"], SystemExit, id="flags0"),  # no --int8-calib: argparse refuses
+    pytest.param(["--int8-artifact", "artifact.npz"], FileNotFoundError, id="flags1"),
+])
+def test_http_serve_int8_flags_raise(flags, error):
+    """The int8 flags serve the int8 tower (tests/test_torch_port_int8.py
+    serves an artifact through them); int8 flags it cannot honour raise
+    before a server starts: no silent f32 serving."""
     from l3embedding_torch.embed import http_serve
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(error):
         http_serve.main(flags + ["--device", "cpu"])
 
 
@@ -844,9 +850,10 @@ def test_cuda_back_to_back_async_calls_keep_their_rows():
 
 @pytest.mark.cuda
 def test_cuda_int8_artifact_raises():
-    """On the card too the int8 artifact raises before anything is built."""
+    """On the card too a missing int8 artifact raises before anything is
+    built (chip_smoke.py's phase_int8 serves a real one there)."""
     _need_cuda()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(FileNotFoundError):
         api.load_audio_embedding_model(int8_artifact="artifact.npz", device="cuda")
 
 
