@@ -26,7 +26,14 @@ time, pairs/s, peak memory and a profile at batch 64. Then int8 extraction
 f32 tower, artifacts, embed_file, the CPU port, the HTTP server on
 --int8-artifact and windows/s beside bf16 and f32; and the 05 corpus CLI
 (phase_corpus) on a dcase2013 corpus of 40 WAVs in f32, bf16, int8 and from
-the int8 artifact.
+the int8 artifact. Then data-parallel training (phase_ddp) on
+cnn_L3_melspec2 at full width: two ranks on the card through gloo, and one
+rank per card through NCCL where several cards are visible, launched with
+torch.distributed.run (``l3embedding_torch.tools.dp_check``), held against
+one process on the whole batch (f32, bf16, per_replica), with the epoch
+cycle, the chief's writes and a preemption raised on rank 1 alone; and the
+VGGish baseline (phase_vggish): the card against a CPU copy, examples/s and
+the 05 CLI with --features vggish on the 40 WAVs.
 Fixtures are made at run time in a temporary directory (stdlib WAV,
 ``.npy`` image, ``.npz`` video, h5 corpus); nothing is downloaded.
 
@@ -46,6 +53,7 @@ import copy
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1593,6 +1601,283 @@ def phase_corpus(dev):
     tmp.cleanup()
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+DDP_BATCH = 8  # the global batch of the data-parallel check
+DDP_TIMING_BATCH = 64  # rows per card in the scaling runs
+# The vision input BN's bias gradient (3 values) is the sum over every
+# pixel of the first conv's input gradient, whose per-channel sums cancel
+# through the BN after that conv: what is left is a border residual. Each
+# rank's part is several times the global sum, so the card's f32 conv
+# rounding at a rank's rows shows in it more than in any other leaf. It is
+# held to 0.999, every other leaf to 0.9999.
+DDP_CANCELLING_LEAF = "vision_model.input_bn.bias"
+
+
+def run_ranks(nproc: int, args: list[str], timeout: float, cards: int) -> float:
+    """``torch.distributed.run`` with nproc ranks of tools/dp_check on the
+    first `cards` cards; the whole process group is killed if it outlives
+    `timeout`. → wall s."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={nproc}",
+           "-m", "l3embedding_torch.tools.dp_check", *args]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(map(str, range(cards))))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise SystemExit(f"dp_check {args[0]} on {nproc} ranks exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def batch_stat_err(stats: dict, want: dict) -> float:
+    """The largest relative error of a BN's batch statistics, read off the
+    running ones of a fresh state's first step (mean 0 and variance 1
+    before it; new = 0.99·old + 0.01·batch)."""
+    batch = lambda s, n: (s[n] - (0.99 if n.endswith("var") else 0.0)) / 0.01  # noqa: E731
+    return max(((batch(stats, n) - batch(want, n)).abs().max() / batch(want, n).abs().max()).item()
+               for n in want)
+
+
+def phase_ddp(dev):
+    """Data-parallel training on cnn_L3_melspec2 at full width: two ranks on
+    this card over gloo (and one rank per card over NCCL with two or more
+    cards), each through tools/dp_check under torch.distributed.run. The f32
+    sync step at a global batch of 8 against one process on the whole batch
+    (loss within 1e-5, the same accuracy, every gradient leaf at cosine >=
+    0.9999 but the BN-fed conv biases and DDP_CANCELLING_LEAF, held to
+    0.999, BN batch statistics within 1e-3), the
+    bf16 step at phase_train's bf16 card gates, per_replica's running statistics
+    against the mean of one-process steps on each rank's rows, the ranks'
+    states equal, run_epochs in one run dir written by the chief alone with
+    equal histories, and a stop raised on rank 1 alone taken by every rank
+    at one step. With two or more cards: ms a step at 64 rows a card on
+    1…N cards and the scaling efficiency."""
+    import tempfile
+
+    from l3embedding_torch.compat.from_jax import bn_fed_biases
+    from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training.state import create_train_state
+    from l3embedding_torch.training.steps import make_train_step
+
+    n_cards = torch.cuda.device_count()
+    noise = bn_fed_biases(TRAIN_MODEL)
+    batches = avc_batches(7, DDP_BATCH, seed=31)
+    stacked = {k: np.stack([b[k] for b in batches]) for k in ("video", "audio", "label")}
+    ref = {"f32": one_train_step(torch.float32, dev, batches[0]),
+           "bf16": one_train_step(torch.bfloat16, dev, batches[0])}
+
+    def per_replica_want(nproc):
+        """The mean of the running statistics of nproc one-process steps,
+        one on each rank's rows."""
+        rows = DDP_BATCH // nproc
+        parts = [one_train_step(torch.float32, dev, {k: v[i * rows:(i + 1) * rows] for k, v in batches[0].items()})[2]
+                 for i in range(nproc)]
+        return {n: sum(p[n] for p in parts) / nproc for n in parts[0]}
+    d_one = np.mean([1 - c for c in leaf_cosines(ref["bf16"][1], ref["f32"][1], skip=noise).values()])
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for backend, nproc, cards in [("gloo", 2, 1)] + ([("nccl", n_cards, n_cards)] if n_cards >= 2 else []):
+            work = os.path.join(tmp.name, f"{backend}{nproc}")
+            os.makedirs(work)
+            np.savez(os.path.join(work, "batches.npz"), **stacked)
+            wall = run_ranks(nproc, ["check", work], timeout=600, cards=cards)
+            recs = []
+            for r in range(nproc):
+                with open(os.path.join(work, f"rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            z = np.load(os.path.join(work, "rank0_steps.npz"))
+            what = f"ddp {backend} {nproc} ranks on {cards} card(s)"
+            if {r["backend"] for r in recs} != {backend} or len({r["device"] for r in recs}) != min(nproc, cards):
+                raise SystemExit(f"{what}: ranks ran on {[(r['backend'], r['device']) for r in recs]}")
+            got = {name: ({n: torch.from_numpy(z[f"{name}/grad/{n}"]).double() for n in ref["f32"][1]},
+                          {n: torch.from_numpy(z[f"{name}/stat/{n}"]) for n in ref["f32"][2]})
+                   for name in ("f32", "bf16", "per_replica")}
+            failures = []
+            for name in ("f32", "bf16"):
+                m, m1 = recs[0][f"{name}_metrics"], ref[name][0]
+                loss_rel = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
+                cos = leaf_cosines(got[name][0], ref[name][1], skip=noise)
+                ranked = sorted(cos, key=cos.get)
+                worst = min((n for n in ranked if n != DDP_CANCELLING_LEAF), key=cos.get)
+                stat_err = batch_stat_err(got[name][1], ref[name][2])
+                line = (f"{what}: {name} step at global batch {DDP_BATCH} vs one process: loss {m['loss']:.6f} / "
+                        f"{m1['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / {m1['acc']:.3f}, "
+                        f"gradient leaves min cosine {cos[worst]:.7f} ({worst}; {DDP_CANCELLING_LEAF} "
+                        f"{cos[DDP_CANCELLING_LEAF]:.7f}; lowest {[(n, round(cos[n], 7)) for n in ranked[:4]]}), "
+                        f"BN batch statistics max relative error {stat_err:.2e}")
+                if name == "f32":
+                    ok = (loss_rel <= 1e-5 and cos[worst] >= 0.9999 and cos[DDP_CANCELLING_LEAF] >= 0.999
+                          and stat_err <= 1e-3)
+                else:
+                    d_dp = np.mean([1 - c for c in leaf_cosines(got[name][0], ref["f32"][1], skip=noise).values()])
+                    line += (f"; mean gradient distance from the one-process f32 step {d_dp:.4f} "
+                             f"(one-process bf16 {d_one:.4f}, <= 1.5x)")
+                    ok = loss_rel <= 1e-2 and d_dp <= 1.5 * d_one and stat_err <= 2e-2
+                log(line)
+                if not (ok and m["acc"] == m1["acc"]):
+                    failures.append(f"{name} step")
+            pr_err = batch_stat_err(got["per_replica"][1], per_replica_want(nproc))
+            log(f"{what}: per_replica running statistics vs the mean of {nproc} one-process steps on the ranks' "
+                f"rows: batch statistics max relative error {pr_err:.2e} (<= 1e-3)")
+            if pr_err > 1e-3:
+                failures.append("per_replica statistics")
+            for key in ("f32_checksum", "bf16_checksum", "per_replica_checksum", "run_checksum",
+                        "model_dir", "history", "preempt_step"):
+                if len({json.dumps(r[key]) for r in recs}) != 1:
+                    failures.append(f"ranks differ in {key}")
+            run_dir = recs[0]["model_dir"]
+            files = set(os.listdir(run_dir))
+            expected = {"model_latest.ckpt", "model_best_valid_accuracy.ckpt", "model_best_valid_loss.ckpt",
+                        "model_checkpoint.00.ckpt", "history_csvlog.csv", "history_checkpoint.pkl", "history.pkl"}
+            others = [w for r in recs[1:] for w in r["writes"]]
+            log(f"{what}: run_epochs (4 steps, 2 evaluations): one run dir {run_dir} holding {sorted(files)}, "
+                f"rank 0 opened {len(recs[0]['writes'])} files for writing, the other ranks {len(others)}; "
+                f"history {recs[0]['history']}")
+            if (files != expected or others or not recs[0]["writes"]
+                    or len(os.listdir(os.path.dirname(run_dir))) != 1
+                    or not np.isfinite([v[0] for v in recs[0]["history"].values()]).all()):
+                failures.append("run_epochs")
+            stops = [(r["preempt_stopped"], r["preempt_step"]) for r in recs]
+            log(f"{what}: stop raised on rank 1 alone after 2 steps: (stopped, step) by rank {stops}")
+            if not all(stopped for stopped, _ in stops) or len({s for _, s in stops}) != 1:
+                failures.append("preemption")
+            for r in recs:
+                MAIN_PATH_LAUNCHES.update(r["launches"])
+                if r["launches"].get("mel_frontend_f32", 0) < 1 or r["launches"].get("mel_frontend_bf16", 0) < 1:
+                    failures.append(f"rank {r['rank']} launches {r['launches']}")
+            ms = statistics.median(recs[0]["step_ms"])
+            log(f"{what}: f32 sync step at global batch {DDP_BATCH} ({DDP_BATCH // nproc} a rank): median "
+                f"{ms:.3f} ms (min {min(recs[0]['step_ms']):.3f}, 10 steps after 2); launches by rank "
+                f"{[r['launches'] for r in recs]}; the whole launch {wall:.1f} s")
+            if failures:
+                raise SystemExit(f"{what}: {failures}")
+        state = create_train_state(build_model(TRAIN_MODEL), torch.Generator().manual_seed(5), 1e-4,
+                                   torch.float32, dev)
+        step = make_train_step()
+        big = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, big)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        log(f"ddp: the one-process f32 step at batch {DDP_BATCH} on this card for comparison: median "
+            f"{statistics.median(times):.3f} ms")
+        del state
+        if n_cards >= 2:
+            work = os.path.join(tmp.name, "time")
+            os.makedirs(work)
+            results = {}
+            for k in range(1, n_cards + 1):
+                run_ranks(k, ["time", work, "--batch-per-rank", str(DDP_TIMING_BATCH)], timeout=600, cards=k)
+                with open(os.path.join(work, f"time_{k}.json")) as f:
+                    results[k] = json.load(f)
+            # One card runs the one-device step (no group); from two cards on
+            # the step is the data-parallel one, whose BN works from sums.
+            for name in ("f32", "bf16"):
+                t1, t2 = results[1][name]["median_ms"], results[2][name]["median_ms"]
+                for k, r in results.items():
+                    ms = r[name]["median_ms"]
+                    log(f"ddp scaling {name}: {k} card(s) ({r['backend']}), {DDP_TIMING_BATCH} rows a card: "
+                        f"median {ms:.3f} ms a step (min {r[name]['min_ms']:.3f}, max {r[name]['max_ms']:.3f}), "
+                        f"{k * DDP_TIMING_BATCH * 1e3 / ms:.1f} pairs/s, efficiency {t1 / ms:.3f} against one "
+                        f"card's one-device step, {t2 / ms:.3f} against 2 cards")
+        log("ddp timing on: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().replace("\n", " | "))
+    finally:
+        tmp.cleanup()
+
+
+def phase_vggish(dev):
+    """The VGGish baseline from a seeded npz (and seeded PCA parameters):
+    72,141,184 parameters; 64 examples on the card against a CPU copy
+    (cosine >= 0.9999 with TF32 off; postprocessed uint8 rows within one
+    level); examples/s; then the 05 CLI with --features vggish on the
+    40-WAV dcase2013 corpus, twice, files/s, every file's rows against the
+    in-process extractor."""
+    import tempfile
+
+    from l3embedding_torch.cli import generate_embedding_samples as cli
+    from l3embedding_torch.data.vggish_mel import waveform_to_examples
+    from l3embedding_torch.models import vggish
+    from l3embedding_torch.models.towers import ieee_fp32
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        model = vggish.VGGish()
+        n_params = sum(p.numel() for p in model.parameters())
+        model.reset_parameters(torch.Generator().manual_seed(3))
+        res = os.path.join(tmp.name, "resources")
+        os.makedirs(res)
+        vggish.save_vggish_npz(os.path.join(res, "vggish_model.npz"), model)
+        rng = np.random.RandomState(33)
+        q, _ = np.linalg.qr(rng.randn(128, 128))
+        np.savez(os.path.join(res, "vggish_pca_params.npz"), pca_eigen_vectors=q * 40.0,
+                 pca_means=np.zeros(128))
+        audio = audio_windows(1, seed=34, seconds=62.0)[0]
+        examples = waveform_to_examples(audio, 48000)[:64]
+        card = vggish.VGGishExtractor(res, device=dev)
+        cpu = vggish.VGGishExtractor(res, device="cpu")
+        rows, want = card.embed_examples(examples, postprocess=False), cpu.embed_examples(examples, postprocess=False)
+        zero = (np.abs(rows).max(1) == 0) & (np.abs(want).max(1) == 0)
+        cos = row_cosines(torch.from_numpy(rows[~zero]), torch.from_numpy(want[~zero])).min().item()
+        post = np.abs(card.embed_examples(examples) - cpu.embed_examples(examples)).max()
+        x = torch.from_numpy(np.ascontiguousarray(examples, np.float32)).to(dev)
+        with torch.no_grad(), ieee_fp32(True):
+            fwd_ms = cuda_ms(lambda: card.model(x))
+        reps = 5
+        card.embed_examples(examples, postprocess=False)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            card.embed_examples(examples, postprocess=False)
+        host_ms_ = (time.perf_counter() - t0) * 1e3 / reps
+        log(f"vggish: {n_params} parameters; {examples.shape[0]} examples on the card vs a CPU copy: min cosine "
+            f"{cos:.7f} (>= 0.9999, {int(zero.sum())} rows zero on both), postprocessed max difference "
+            f"{post:.0f} level(s) (<= 1); f32 forward {fwd_ms:.3f} ms ({examples.shape[0] * 1e3 / fwd_ms:.1f} "
+            f"examples/s, CUDA events), embed_examples {host_ms_:.3f} ms ({examples.shape[0] * 1e3 / host_ms_:.1f} "
+            f"examples/s, host clock with upload and download)")
+        if n_params != 72_141_184 or cos < 0.9999 or post > 1 or zero.all():
+            raise SystemExit("vggish: the card disagrees with the CPU copy or the model has the wrong size")
+        _, data = corpus_fixture(os.path.join(tmp.name, "corpus"))
+        for round_ in (1, 2):
+            out = os.path.join(tmp.name, f"out{round_}")
+            t0 = time.perf_counter()
+            rc = cli.main(["--features", "vggish", "--vggish-resources-dir", res, "-hs", "0.1", "--device", dev,
+                           "dcase2013", data, out])
+            wall = time.perf_counter() - t0
+            top = os.path.join(out, "features", "dcase2013", "vggish")
+            tree = {}
+            for fold in sorted(os.listdir(top)):
+                if fold.startswith("fold"):
+                    for f in sorted(os.listdir(os.path.join(top, fold))):
+                        with np.load(os.path.join(top, fold, f)) as z:
+                            tree[f"{fold}/{f}"] = z["X"]
+            examples_n = sum(x.shape[0] for x in tree.values())
+            log(f"vggish 05 --features vggish (round {round_}): rc {rc}, {len(tree)} files, {examples_n} examples "
+                f"in {wall:.2f} s (the whole CLI): {len(tree) / wall:.2f} files/s, {examples_n / wall:.1f} examples/s")
+            if rc != 0 or len(tree) != 40:
+                raise SystemExit(f"vggish 05: rc {rc}, {len(tree)} files")
+        worst = max(np.abs(x - card.embed_file(os.path.join(data, k.replace(".npz", ".wav")), hop_size=0.1)).max()
+                    for k, x in tree.items())
+        log(f"vggish 05: every file's rows against the in-process extractor: max difference {worst:.0f} level(s)")
+        if worst > 1 or not all(x.shape[1] == 128 and np.isfinite(x).all() for x in tree.values()):
+            raise SystemExit("vggish 05: rows disagree with the in-process extractor")
+        log("vggish timing on: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+    finally:
+        tmp.cleanup()
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
     from l3embedding_torch.ops import block1_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
@@ -1656,6 +1941,8 @@ def main() -> int:
     phase_train(dev)
     phase_int8(dev)
     phase_corpus(dev)
+    phase_ddp(dev)
+    phase_vggish(dev)
 
     kernels = []
     for name, (src, replaces, modes) in KERNELS.items():

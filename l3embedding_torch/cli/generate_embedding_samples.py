@@ -9,6 +9,10 @@ plus ``--device`` (default cuda; cpu runs the plain versions):
         -lmp .../embedding/<subset>/<model_type>/<timestamp>/model.ckpt \\
         dcase2013 DATA_DIR OUTPUT_DIR [--int8] [--device cpu]
 
+``--features vggish`` needs no model path: the VGGish baseline
+(``models/vggish.py``, weights from ``--vggish-resources-dir``) writes
+``features/<dataset>/vggish/fold<k>/*.npz``.
+
 ``--mesh`` replicates the tower on every visible card and splits each
 window batch over them. ``--int8`` calibrates the int8 tower on
 --int8-calib-files files of the dataset (``embed/quantized.py``);
@@ -34,6 +38,7 @@ from ..data.usc.datasets import (
 from ..data.usc.features import check_feature_type
 from ..embed.extract import EmbeddingExtractor
 from ..embed.quantized import QuantizedEmbeddingExtractor
+from ..models.vggish import VGGishExtractor
 from ..utils.log import init_console_logger
 
 LOGGER = logging.getLogger("l3embedding_torch.cls-data")
@@ -116,6 +121,9 @@ def parse_arguments(argv=None) -> dict:
                         action="store_true",
                         help="Keep the front end's DFT in bf16 (the front-end "
                         "kernel) instead of the default s8xs8->s32 stage")
+    parser.add_argument("--vggish-resources-dir", dest="vggish_resources_dir", type=str,
+                        help="Directory of vggish_model.npz and vggish_pca_params.npz "
+                        "(default: resources/vggish of this checkout)")
     parser.add_argument("--device", dest="device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain versions)")
     parser.add_argument("--fold", dest="fold", type=int,
@@ -202,21 +210,25 @@ def main(argv=None) -> int:
     fold_num = args["fold"]
     check_feature_type(features)
 
-    if not model_path:
-        raise ValueError("Must provide model path if L3 embedding features are used")
-    # Model type and output layout from the model path string
-    # (reference 05_generate_embedding_samples.py:143-157):
-    # .../embedding/<subset>/<model_type>/<timestamp>/model_*.ckpt
-    model_desc_start_idx = model_path.rindex("embedding") + 10
-    model_desc_end_idx = os.path.dirname(model_path).rindex("/")
-    embedding_desc_str = model_path[model_desc_start_idx:model_desc_end_idx]
-    dataset_output_dir = os.path.join(
-        args["output_dir"], "features", dataset_name, features,
-        pooling_type, embedding_desc_str,
-    )
-    model_type = embedding_desc_str.split("/")[-1]
-    LOGGER.info("Loading embedding model (%s)...", model_type)
-    l3embedding_model = build_extractor(args, model_path, model_type, pooling_type)
+    if features == "vggish":
+        dataset_output_dir = os.path.join(args["output_dir"], "features", dataset_name, features)
+        l3embedding_model = VGGishExtractor(args["vggish_resources_dir"], device=args["device"])
+    else:
+        if not model_path:
+            raise ValueError("Must provide model path if L3 embedding features are used")
+        # Model type and output layout from the model path string
+        # (reference 05_generate_embedding_samples.py:143-157):
+        # .../embedding/<subset>/<model_type>/<timestamp>/model_*.ckpt
+        model_desc_start_idx = model_path.rindex("embedding") + 10
+        model_desc_end_idx = os.path.dirname(model_path).rindex("/")
+        embedding_desc_str = model_path[model_desc_start_idx:model_desc_end_idx]
+        dataset_output_dir = os.path.join(
+            args["output_dir"], "features", dataset_name, features,
+            pooling_type, embedding_desc_str,
+        )
+        model_type = embedding_desc_str.split("/")[-1]
+        LOGGER.info("Loading embedding model (%s)...", model_type)
+        l3embedding_model = build_extractor(args, model_path, model_type, pooling_type)
 
     os.makedirs(dataset_output_dir, exist_ok=True)
     args["features_dir"] = dataset_output_dir

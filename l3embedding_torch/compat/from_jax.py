@@ -11,6 +11,7 @@ tower's own subtree), and returns a state dict:
     state into a ``torch.optim.Adam`` over ``model.parameters()``;
   * ``block1_conv_from_jax(w_hwio, scale, shift)`` → the block-1 probe
     kernel's operands (not a state dict).
+  * ``vggish_from_jax(params)`` → the VGGish module's (flax VGGish params).
 
 Naming follows flax's auto-names. In a full tower ``ConvBNRelu_{i}/{Conv_0,
 BatchNorm_0}`` are the blocks and ``{audio,vision}_embedding_layer`` the
@@ -194,3 +195,19 @@ def block1_conv_from_jax(w_hwio, scale, shift) -> dict:
         "scale": to_torch_layout(np.reshape(scale, 64), None),
         "shift": to_torch_layout(np.reshape(shift, 64), None),
     }
+
+
+def vggish_from_jax(params_np: dict) -> dict:
+    """flax VGGish params ``{layer: {"kernel", "bias"}}`` (numpy) → the state
+    dict of ``models.vggish.VGGish`` (conv HWIO → OIHW, dense (in, out) →
+    (out, in); fc1_1's rows stay in JAX's H·W·C order, which the module's
+    flatten follows). ``models.vggish.save_vggish_npz`` writes the result
+    in the npz layout both packages load."""
+    from ..models.vggish import CONVS, DENSES
+
+    sd = {}
+    for group, layers, layout in (("convs", CONVS, "conv"), ("fcs", DENSES, "dense")):
+        for name, *_ in layers:
+            sd[f"{group}.{name}.weight"] = to_torch_layout(params_np[name]["kernel"], layout)
+            sd[f"{group}.{name}.bias"] = to_torch_layout(params_np[name]["bias"], None)
+    return sd

@@ -2,8 +2,8 @@
 ``l3embedding_tpu/data/usc/features.py``, reference data/usc/features.py).
 
 ``compute_file_features`` computes 'l3' features with the port's
-extractors (``EmbeddingExtractor`` or ``QuantizedEmbeddingExtractor``);
-'vggish' is not ported yet (ROADMAP.md Queue 1 item 7) and raises. The
+extractors (``EmbeddingExtractor`` or ``QuantizedEmbeddingExtractor``) and
+'vggish' features with the resident ``models.vggish.VGGishExtractor``. The
 numpy / scipy helpers are copies. The preprocessing that fits sklearn
 scalers (``preprocess_split_data``) imports sklearn inside the function, so
 that the extraction stage (``05``) starts on a machine without it.
@@ -189,22 +189,37 @@ def get_l3_frames_uniform(audio, extractor, hop_size=0.1, sr=48000, defer=False)
     return extractor.embed_audio(audio, hop_size=hop_size)
 
 
+def get_vggish_frames_uniform(audio_path, hop_size=0.1, resources_dir=None, device="cuda",
+                              extractor=None):
+    """VGGish embedding frames (reference features.py:166-238) from one
+    resident model (`extractor`, else the cached one of `resources_dir` on
+    `device`), not a fresh graph per file."""
+    from ...models.vggish import VGGishExtractor
+
+    extractor = extractor or VGGishExtractor.get_cached(resources_dir, device)
+    return extractor.embed_file(audio_path, hop_size=hop_size)
+
+
 def check_feature_type(feature_type: str) -> None:
-    """Raise for a feature type the port cannot compute."""
-    if feature_type == "vggish":
-        raise NotImplementedError(
-            "VGGish features are not ported yet (ROADMAP.md Queue 1 item 7); use 'l3'"
-        )
-    if feature_type != "l3":
+    """Raise for a feature type that is neither 'l3' nor 'vggish'."""
+    if feature_type not in ("l3", "vggish"):
         raise ValueError(f"Invalid feature type: {feature_type}")
 
 
 def compute_file_features(path, feature_type, l3embedding_model=None, defer=False, **feature_args):
     """Dispatch (reference features.py:309-323). `l3embedding_model` is an
-    extractor (name kept for CLI-surface parity). defer=True returns the
-    extractor's asynchronous handle instead of an ndarray."""
+    extractor (name kept for CLI-surface parity; for 'vggish' a
+    ``VGGishExtractor``, or None for the cached one of
+    ``feature_args["resources_dir"]``). defer=True returns an L3
+    extractor's asynchronous handle instead of an ndarray; VGGish rows are
+    returned as an ndarray."""
     check_feature_type(feature_type)
+    hop_size = feature_args.get("hop_size", 0.1)
+    if feature_type == "vggish":
+        return get_vggish_frames_uniform(
+            path, hop_size=hop_size, resources_dir=feature_args.get("resources_dir"),
+            device=feature_args.get("device", "cuda"), extractor=l3embedding_model,
+        )
     if not l3embedding_model:
         raise ValueError(f"Must provide L3 embedding model to use {feature_type} features")
-    hop_size = feature_args.get("hop_size", 0.1)
     return get_l3_frames_uniform(path, l3embedding_model, hop_size=hop_size, defer=defer)

@@ -26,10 +26,12 @@ towers are always f32, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -45,6 +47,61 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.conv2d(
         x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding
     )
+
+
+# The process group that train-mode BatchNorm takes its batch statistics
+# over (``sync_batch_norm``); None: this process's batch alone.
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("bn_group", default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """Within the block, every train-mode BatchNorm takes its statistics over
+    the global batch of `group`'s ranks (flax's BatchNorm over a sharded
+    batch). A group of one, or None, leaves today's local path."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the group's ranks that carries the gradient back: its
+    backward all-reduces the incoming gradient, so each rank's inputs get
+    the share of every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    return _AllReduceSum.apply(t, group)
+
+
+def _batch_moments(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance) per channel of the global batch: Σx, Σx² and
+    the count reduced in one all-reduce, E[x²] − E[x]² from the global sums
+    (flax's fast variance under sync BN), clipped at 0."""
+    c = x.shape[1]
+    dims = (0, 2, 3)
+    count = x.new_full((1,), x.numel() / c)
+    total = _all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), count]), group)
+    mean = total[:c] / total[2 * c]
+    var = torch.clamp(total[c:2 * c] / total[2 * c] - mean * mean, min=0.0)
+    return mean, var
 
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
@@ -64,6 +121,9 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
     step, as the fused kernel's accuracy there depends on the memory
     layout (the vision input BN's bias gradient at cosine 0.99960 to
     float64, against 0.999992 written out).
+
+    Inside ``sync_batch_norm(group)`` the statistics are the global batch's
+    (``_batch_moments``); outside it, this batch's, as above.
     """
     x = x.float()
     if not train:
@@ -72,9 +132,13 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
             training=False, eps=bn.eps,
         )
         return y.to(dtype)
-    dims = (0, 2, 3)
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    group = _BN_GROUP.get()
+    if group is None:
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    else:
+        mean, var = _batch_moments(x, group)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)

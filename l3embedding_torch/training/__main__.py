@@ -1,6 +1,12 @@
-"""The port's stage 03: AVC embedding training on one device.
+"""The port's stage 03: AVC embedding training.
 
     python -m l3embedding_torch.training [flags] TRAIN_DIR VALID_DIR OUTPUT_DIR
+
+On several cards, one process each (data parallel; each rank on
+``cuda:LOCAL_RANK``):
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m l3embedding_torch.training [flags] TRAIN_DIR VALID_DIR OUTPUT_DIR
 
 The flags and positionals of ``03_train_embedding.py`` (reference
 03_train_embedding.py:16-157), plus ``--device`` (default cuda).
@@ -8,6 +14,9 @@ The flags and positionals of ``03_train_embedding.py`` (reference
 
 import argparse
 
+import torch.distributed as dist
+
+from ..parallel import initialize_distributed
 from .loop import train
 
 
@@ -38,8 +47,9 @@ def parse_arguments(argv=None):
     parser.add_argument("-r", "--random-state", dest="random_state", type=int,
                         default=20180123, help="Random seed")
     parser.add_argument("--gpus", dest="gpus", type=int, default=1,
-                        help="(compat) Number of accelerators, recorded; "
-                        "the port trains on one device (--device)")
+                        help="(compat) Number of accelerators, recorded; the "
+                        "run is data parallel over the processes that "
+                        "torch.distributed.run starts, one per card")
     parser.add_argument("-gsid", "--gsheet-id", dest="gsheet_id", type=str,
                         help="Google Spreadsheet ID for tracking "
                         "(tracked locally as JSONL)")
@@ -77,8 +87,9 @@ def parse_arguments(argv=None):
     parser.add_argument("--bn-mode", dest="bn_mode", type=str,
                         default="sync", choices=["sync", "per_replica"],
                         help="BatchNorm statistics scope: 'sync' = the whole "
-                        "batch; 'per_replica' (the reference's per-GPU-slice "
-                        "BN) needs several devices and is not ported yet")
+                        "global batch; 'per_replica' = each process's rows "
+                        "(the reference's per-GPU-slice BN), running "
+                        "statistics averaged over the processes")
     parser.add_argument("--kapre-batch-global-db", dest="db_batch_global",
                         action="store_true",
                         help="Reproduce kapre<=0.1.x's batch-global dB "
@@ -103,7 +114,13 @@ def parse_arguments(argv=None):
 
 
 def main(argv=None) -> int:
-    train(**parse_arguments(argv))
+    args = parse_arguments(argv)
+    distributed = initialize_distributed()
+    try:
+        train(**args)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
     return 0
 
 

@@ -13,7 +13,10 @@ Four roles per run with the JAX package's file names, plus the mid-epoch
 preemption snapshot; ``save_state`` / ``load_state`` hold ``{step,
 params, batch_stats, opt_state}`` of a ``TrainState`` (the optimiser state
 in optax.adam's layout, ``compat/to_jax.py``), ``save_variables`` the
-weights alone. Files appear atomically (tmp + rename).
+weights alone. Files appear atomically (tmp + rename). Under data
+parallelism the state is replicated and the chief (rank 0) writes it;
+``load_state`` reads the file on every rank, so a checkpoint does not
+depend on how many ranks wrote or read it.
 """
 
 from __future__ import annotations

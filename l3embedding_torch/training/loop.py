@@ -1,4 +1,4 @@
-"""AVC training on one device — the port's ``03_train_embedding`` (port of
+"""AVC training — the port's ``03_train_embedding`` (port of
 ``l3embedding_tpu/training/loop.py``, reference l3embedding/train.py:218-421).
 
 The same experiment surface as the JAX package's ``train()``: model_id
@@ -8,11 +8,16 @@ checkpoint roles each epoch (``.ckpt`` files the JAX package restores),
 resume through ``continue_model_dir`` at an epoch boundary or, after a
 preemption, at the exact step.
 
-One process drives one device (``device``, "cuda" by default). ``gpus``
-and ``use_mesh`` are accepted and recorded; several devices, several
-processes and per-replica BatchNorm wait for the multi-GPU item (ROADMAP.md
-Queue 1 item 9). ``run_epochs`` is the per-epoch step / eval / checkpoint
-cycle over any batch source; ``train()`` feeds it the h5 corpus.
+One process drives one device (``device``, "cuda" by default). Under a
+process group of several ranks (``parallel.initialize_distributed``, one
+process per card as ``torch.distributed.run`` starts them) the run is
+data parallel: each rank trains on ``cuda:LOCAL_RANK`` with its own shard
+of the corpus and global_batch // world rows a step, the ranks agree on
+one run directory and stop together on preemption, and only rank 0 (the
+chief) writes. ``gpus`` is recorded and, as in the JAX package, advisory:
+the parallelism follows the process group; ``use_mesh=False`` refuses a
+group. ``run_epochs`` is the per-epoch step / eval / checkpoint cycle over
+any batch source; ``train()`` feeds it the h5 corpus.
 """
 
 from __future__ import annotations
@@ -33,8 +38,18 @@ import time
 from typing import Callable, Iterable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from ..models.registry import build_model
+from ..parallel import (
+    comm_device,
+    data_group,
+    local_device,
+    rank,
+    replicate,
+    shard_batch_local,
+    world_size,
+)
 from ..utils.log import init_console_logger, init_file_logger
 from ..utils.tracker import JSONLTracker, NullTracker
 from . import checkpoints
@@ -101,6 +116,46 @@ class _PreemptionGuard:
         self._installed.clear()
 
 
+class _PreemptionSync:
+    """The local preemption flag turned into a decision that every rank
+    takes at the same poll (JAX's ``_PreemptionSync``).
+
+    A signal reaches the ranks at different steps; a rank that stopped on
+    its own flag would leave the others waiting in the next step's
+    all-reduce. Each poll instead sends the local flag into a one-element
+    MAX all-reduce, started asynchronously and read `lag` polls later, when
+    it has long finished: every rank reads the same sequence of values and
+    stops at the same poll. Without a group the local flag is read
+    directly."""
+
+    def __init__(self, local_flag: Callable[[], bool], group, lag: int):
+        self.local_flag = local_flag
+        self.group = group
+        self.lag = max(1, lag)
+        self._pending: collections.deque = collections.deque()
+        if group is not None:
+            self._device = comm_device(group)
+
+    def poll(self) -> bool:
+        """Call at every train and eval step; True: stop now (on every rank
+        at the same call)."""
+        if self.group is None:
+            return self.local_flag()
+        flag = torch.full((1,), 1.0 if self.local_flag() else 0.0, device=self._device)
+        work = dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group, async_op=True)
+        self._pending.append((work, flag))
+        if len(self._pending) > self.lag:
+            work, flag = self._pending.popleft()
+            work.wait()
+            return bool(flag.item() > 0)
+        return False
+
+    def close(self) -> None:
+        """Wait for the reductions still in flight."""
+        while self._pending:
+            self._pending.popleft()[0].wait()
+
+
 def get_git_commit() -> str:
     try:
         return (
@@ -128,18 +183,27 @@ def get_restart_info(history_path):
     return int(last["epoch"]), float(last["val_acc"]), float(last["val_loss"])
 
 
-def _resolve_run_dir(output_dir, model_id):
-    """A new timestamped run dir; the pid is appended on a collision."""
-    base = os.path.join(
-        output_dir, "embedding", model_id, datetime.datetime.now().strftime("%Y%m%d%H%M%S")
-    )
-    try:
-        os.makedirs(base)
-        return base
-    except FileExistsError:
-        model_dir = f"{base}-{os.getpid()}"
-        os.makedirs(model_dir, exist_ok=True)
-        return model_dir
+def _resolve_run_dir(output_dir, model_id, group=None):
+    """A new timestamped run dir; the pid is appended on a collision. Under
+    a group the chief makes it and broadcasts its name, so that every rank
+    works in one directory (the clocks of two ranks can straddle a second,
+    and the collision fallback can fire on one alone)."""
+    model_dir = None
+    if rank() == 0:
+        base = os.path.join(
+            output_dir, "embedding", model_id, datetime.datetime.now().strftime("%Y%m%d%H%M%S")
+        )
+        try:
+            os.makedirs(base)
+            model_dir = base
+        except FileExistsError:
+            model_dir = f"{base}-{os.getpid()}"
+            os.makedirs(model_dir, exist_ok=True)
+    if group is not None:
+        name = [model_dir]
+        dist.broadcast_object_list(name, src=0, group=group)
+        model_dir = name[0]
+    return model_dir
 
 
 def _append_history_row(path, row):
@@ -209,11 +273,13 @@ def train(
         guard.restore()
 
 
-def _read_preempt_marker(continue_model_dir, initial_epoch, train_batch_size, train_epoch_size):
+def _read_preempt_marker(continue_model_dir, initial_epoch, train_batch_size, train_epoch_size,
+                         process_count=1, chief=True):
     """The preempt.json of a run dir, if it is valid and current: → (epoch,
     steps_done_in_epoch, checkpoint file) or None. Stale, unparsable and
-    orphaned markers are removed (resume then starts at the epoch
-    boundary); a marker of another batch geometry raises."""
+    orphaned markers are removed by the chief (resume then starts at the
+    epoch boundary); a marker of another process count or batch geometry
+    raises: the per-rank data fast-forward would replay or skip samples."""
     preempt_path = os.path.join(continue_model_dir, PREEMPT_FILE)
     if not os.path.exists(preempt_path):
         return None
@@ -226,7 +292,8 @@ def _read_preempt_marker(continue_model_dir, initial_epoch, train_batch_size, tr
             "Ignoring unparsable %s (%s); resuming at the last completed epoch boundary.",
             PREEMPT_FILE, e,
         )
-        _clear_preempt_files(continue_model_dir)
+        if chief:
+            _clear_preempt_files(continue_model_dir)
         return None
     if epoch < initial_epoch:
         # The history CSV records this epoch as complete: a kill landed
@@ -235,7 +302,8 @@ def _read_preempt_marker(continue_model_dir, initial_epoch, train_batch_size, tr
             "Ignoring stale %s (epoch %d < next epoch %d from history); removing it.",
             PREEMPT_FILE, epoch, initial_epoch,
         )
-        _clear_preempt_files(continue_model_dir)
+        if chief:
+            _clear_preempt_files(continue_model_dir)
         return None
     marker_ckpt = info.get("checkpoint", checkpoints.LATEST)
     if not os.path.exists(os.path.join(continue_model_dir, marker_ckpt)):
@@ -243,19 +311,22 @@ def _read_preempt_marker(continue_model_dir, initial_epoch, train_batch_size, tr
             "%s references missing snapshot %s; resuming at the last completed epoch boundary instead.",
             PREEMPT_FILE, marker_ckpt,
         )
-        _clear_preempt_files(continue_model_dir)
+        if chief:
+            _clear_preempt_files(continue_model_dir)
         return None
     saved_procs = int(info.get("process_count", 1))
-    if saved_procs != 1:
+    if saved_procs != process_count:
         raise ValueError(
-            f"{PREEMPT_FILE} was written by a {saved_procs}-process run; resuming on 1 "
-            "process would misalign the per-shard data fast-forward."
+            f"{PREEMPT_FILE} was written by a {saved_procs}-process run; resuming on "
+            f"{process_count} processes would misalign the per-shard data fast-forward. "
+            "Resume on the same process count (or complete the epoch there first)."
         )
-    saved_bs = int(info.get("per_process_batch_size", train_batch_size))
-    if saved_bs != train_batch_size:
+    per_process = train_batch_size // process_count
+    saved_bs = int(info.get("per_process_batch_size", per_process))
+    if saved_bs != per_process:
         raise ValueError(
             f"{PREEMPT_FILE} was written with per-process batch size {saved_bs}; resuming "
-            f"with {train_batch_size} would misalign the data fast-forward. Resume with the "
+            f"with {per_process} would misalign the data fast-forward. Resume with the "
             "same train_batch_size (or complete the epoch there first)."
         )
     saved_epoch_size = int(info.get("train_epoch_size", train_epoch_size))
@@ -280,7 +351,23 @@ def _train_impl(
         init_console_logger(LOGGER, verbose=verbose)
         if not disable_logging:
             init_file_logger(LOGGER, log_path=log_path)
-    device = torch.device(device)
+    group = data_group()
+    if group is not None and not use_mesh:
+        raise ValueError(
+            f"use_mesh=False trains on one device, but this process is one of {world_size()}: "
+            "launch one process, or keep use_mesh"
+        )
+    if group is not None and db_batch_global:
+        raise NotImplementedError(
+            "db_batch_global spans the global batch; several processes would each take "
+            "their own rows' reference"
+        )
+    proc_count, chief = world_size(), rank() == 0
+    for name, size in (("train_batch_size", train_batch_size),
+                       ("validation_batch_size", validation_batch_size)):
+        if size % proc_count:
+            raise ValueError(f"{name} {size} not divisible by process_count {proc_count}")
+    device = local_device(device) if group is not None else torch.device(device)
 
     # Model id from the data dir's name (reference train.py:231-234).
     data_subset_name = os.path.basename(os.path.normpath(train_data_dir))
@@ -313,7 +400,7 @@ def _train_impl(
         "gsheet_id": gsheet_id,
         "google_dev_app_name": google_dev_app_name,
         "backend": f"torch-{device.type}",
-        "num_devices": 1,
+        "num_devices": proc_count,
         "compute_dtype": compute_dtype,
     }
     LOGGER.info("Training with the following arguments: %s", param_dict)
@@ -323,27 +410,28 @@ def _train_impl(
         model_dir = continue_model_dir
         os.makedirs(model_dir, exist_ok=True)
     else:
-        model_dir = _resolve_run_dir(output_dir, model_id)
+        model_dir = _resolve_run_dir(output_dir, model_id, group)
     param_dict["model_dir"] = model_dir
 
-    with open(os.path.join(model_dir, "config.json"), "w") as fd:
-        json.dump(param_dict, fd, indent=2)
-    # Everything needed to rebuild the model (replaces the reference's
-    # pickled Keras spec, train.py:306-314).
-    with open(os.path.join(model_dir, "model.json"), "w") as fd:
-        json.dump(
-            {
-                "framework": "l3embedding_torch",
-                "model_type": model_type,
-                "audio_input_shape": list(spec.audio_input_shape),
-                "video_input_shape": list(spec.video_input_shape),
-                "audio_embedding_pooling": {
-                    k: list(v) for k, v in spec.audio_embedding_pooling.items()
+    if chief:
+        with open(os.path.join(model_dir, "config.json"), "w") as fd:
+            json.dump(param_dict, fd, indent=2)
+        # Everything needed to rebuild the model (replaces the reference's
+        # pickled Keras spec, train.py:306-314).
+        with open(os.path.join(model_dir, "model.json"), "w") as fd:
+            json.dump(
+                {
+                    "framework": "l3embedding_torch",
+                    "model_type": model_type,
+                    "audio_input_shape": list(spec.audio_input_shape),
+                    "video_input_shape": list(spec.video_input_shape),
+                    "audio_embedding_pooling": {
+                        k: list(v) for k, v in spec.audio_embedding_pooling.items()
+                    },
                 },
-            },
-            fd,
-            indent=2,
-        )
+                fd,
+                indent=2,
+            )
 
     state = create_train_state(
         spec,
@@ -369,7 +457,8 @@ def _train_impl(
                 initial_epoch = last_epoch_idx + 1
         resume_ckpt = checkpoints.LATEST
         marker = _read_preempt_marker(
-            continue_model_dir, initial_epoch, train_batch_size, train_epoch_size
+            continue_model_dir, initial_epoch, train_batch_size, train_epoch_size,
+            proc_count, chief,
         )
         if marker is not None:
             initial_epoch, resume_step_in_epoch, resume_ckpt = marker
@@ -379,11 +468,12 @@ def _train_impl(
             )
         checkpoints.load_state(os.path.join(continue_model_dir, resume_ckpt), state)
         LOGGER.info("Resuming from epoch %d", initial_epoch)
+    replicate(state, group)
 
-    train_step = make_train_step(accum_steps=accum_steps, bn_mode=bn_mode)
-    eval_step = make_eval_step()
+    train_step = make_train_step(accum_steps=accum_steps, bn_mode=bn_mode, group=group)
+    eval_step = make_eval_step(group)
 
-    if gsheet_id:
+    if gsheet_id and chief:
         tracker = JSONLTracker(os.path.join(model_dir, "experiments.jsonl"))
         tracker.upsert(dict(param_dict))
     else:
@@ -393,11 +483,18 @@ def _train_impl(
         train_start_batch_idx = train_epoch_size * initial_epoch + resume_step_in_epoch
     else:
         train_start_batch_idx = None
-    train_gen = data_generator(
-        train_data_dir,
-        batch_size=train_batch_size,
-        random_state=random_state,
-        start_batch_idx=train_start_batch_idx,
+    # Each rank streams its own file shard of the corpus, global // world
+    # rows a step (one process: the whole corpus, as the reference).
+    shard = dict(shard_index=rank(), shard_count=proc_count)
+    train_gen = (
+        shard_batch_local(b, train_batch_size, group)
+        for b in data_generator(
+            train_data_dir,
+            batch_size=train_batch_size // proc_count,
+            random_state=random_state,
+            start_batch_idx=train_start_batch_idx,
+            **shard,
+        )
     )
 
     def validation_batches():
@@ -406,8 +503,9 @@ def _train_impl(
         return single_epoch_data_generator(
             validation_data_dir,
             validation_epoch_size,
-            batch_size=validation_batch_size,
+            batch_size=validation_batch_size // proc_count,
             random_state=random_state,
+            **shard,
         )
 
     history, _ = run_epochs(
@@ -427,6 +525,8 @@ def _train_impl(
         should_stop=lambda: guard.requested,
         preempt_after_steps=preempt_after_steps,
         tracker=tracker,
+        group=group,
+        chief=chief,
     )
     return model_dir, history
 
@@ -465,6 +565,8 @@ def run_epochs(
     should_stop: Callable[[], bool] = lambda: False,
     preempt_after_steps: int | None = None,
     tracker=None,
+    group=None,
+    chief: bool = True,
 ):
     """The per-epoch cycle of ``train()`` over any source of host batches
     (numpy dicts in storage dtypes): `train_batches`, one stream over every
@@ -475,6 +577,12 @@ def run_epochs(
     epoch, of each step's launch, of each wait for a batch and of each
     epoch's checkpoint writes. Batches are uploaded to the model's device
     on the prefetch thread.
+
+    should_stop is this process's preemption flag (and preempt_after_steps
+    raises it after that many train steps of this call). Under `group` the
+    ranks poll it through ``_PreemptionSync`` and stop together, a few
+    steps after the first rank raised it; only the `chief` writes
+    checkpoints, markers, history files and traces.
     """
     tracker = tracker or NullTracker()
     device = next(state.model.parameters()).device
@@ -489,11 +597,13 @@ def run_epochs(
         for b in gen:
             yield to_device(b, device)
 
-    profile_remaining = int(profile_steps)
+    profile_remaining = int(profile_steps) if chief else 0
     prof = _start_profiler(model_dir, device) if profile_remaining > 0 else None
-    saver = checkpoints.AsyncCheckpointWriter() if async_checkpoints else None
+    saver = checkpoints.AsyncCheckpointWriter() if async_checkpoints and chief else None
 
     def save_ckpt(filename):
+        if not chief:
+            return
         path = os.path.join(model_dir, filename)
         if saver is not None:
             saver.save(path, state)
@@ -507,24 +617,25 @@ def run_epochs(
         or a complete marker with its snapshot."""
         if saver is not None:
             saver.close()  # drain pending writes first so LATEST is last
-        # Retract an older marker before overwriting the snapshot it names.
-        try:
-            os.remove(os.path.join(model_dir, PREEMPT_FILE))
-        except OSError:
-            pass
-        checkpoints.save_state(os.path.join(model_dir, checkpoints.PREEMPT), state)
-        marker = {
-            "epoch": epoch,
-            "steps_done_in_epoch": steps_done_in_epoch,
-            "global_batch_idx": epoch * train_epoch_size + steps_done_in_epoch,
-            "process_count": 1,
-            "per_process_batch_size": train_batch_size,
-            "train_epoch_size": train_epoch_size,
-            "checkpoint": checkpoints.PREEMPT,
-        }
-        checkpoints._write_atomic(
-            os.path.join(model_dir, PREEMPT_FILE), json.dumps(marker).encode()
-        )
+        if chief:
+            # Retract an older marker before overwriting the snapshot it names.
+            try:
+                os.remove(os.path.join(model_dir, PREEMPT_FILE))
+            except OSError:
+                pass
+            checkpoints.save_state(os.path.join(model_dir, checkpoints.PREEMPT), state)
+            marker = {
+                "epoch": epoch,
+                "steps_done_in_epoch": steps_done_in_epoch,
+                "global_batch_idx": epoch * train_epoch_size + steps_done_in_epoch,
+                "process_count": proc_count,
+                "per_process_batch_size": train_batch_size // proc_count,
+                "train_epoch_size": train_epoch_size,
+                "checkpoint": checkpoints.PREEMPT,
+            }
+            checkpoints._write_atomic(
+                os.path.join(model_dir, PREEMPT_FILE), json.dumps(marker).encode()
+            )
         LOGGER.warning(
             "Preempted: saved %s at epoch %d step %d; rerun with --continue-model-dir %s "
             "to resume at this exact batch.",
@@ -533,12 +644,19 @@ def run_epochs(
 
     steps_run_total = 0
     preempted = False
+    proc_count = 1 if group is None else dist.get_world_size(group)
+    psync = _PreemptionSync(
+        lambda: should_stop() or (
+            preempt_after_steps is not None and steps_run_total >= preempt_after_steps),
+        group, lag=max(2, 2 * prefetch_batches),
+    )
 
     @contextlib.contextmanager
     def _training_cleanup():
         try:
             yield
         finally:
+            psync.close()
             if saver is not None:
                 saver.close()
             if prof is not None and profile_remaining > 0:
@@ -583,9 +701,7 @@ def run_epochs(
                         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
                         LOGGER.info("Profiler trace written to %s", trace_dir)
                 steps_run_total += 1
-                if should_stop() or (
-                    preempt_after_steps is not None and steps_run_total >= preempt_after_steps
-                ):
+                if psync.poll():
                     float(metrics["loss"])
                     inflight.clear()
                     save_preempt_snapshot(epoch, epoch_step_offset + step_in_epoch + 1)
@@ -615,7 +731,7 @@ def run_epochs(
                     else:
                         va_loss_sum = va_loss_sum + metrics["loss"]
                         va_acc_sum = va_acc_sum + metrics["acc"]
-                    if should_stop():
+                    if psync.poll():
                         float(metrics["loss"])
                         save_preempt_snapshot(epoch, train_epoch_size)
                         preempted = True
@@ -659,12 +775,13 @@ def run_epochs(
 
             for k in ("acc", "loss", "val_acc", "val_loss"):
                 history[k].append(row[k])
-            _append_history_row(history_csv, row)
-            with open(history_checkpoint, "wb") as fp:
-                pickle.dump({"loss": history["loss"], "val_loss": history["val_loss"]}, fp)
+            if chief:
+                _append_history_row(history_csv, row)
+                with open(history_checkpoint, "wb") as fp:
+                    pickle.dump({"loss": history["loss"], "val_loss": history["val_loss"]}, fp)
 
             # A completed epoch supersedes a mid-epoch snapshot marker.
-            if epoch == initial_epoch and resume_step_in_epoch:
+            if chief and epoch == initial_epoch and resume_step_in_epoch:
                 _clear_preempt_files(model_dir)
 
             best_train_acc = max(best_train_acc, row["acc"])
@@ -686,16 +803,19 @@ def run_epochs(
 
     if preempted:
         LOGGER.info("Exiting cleanly after preemption snapshot.")
-        return history, True
-
-    LOGGER.info("Done training. Saving results to disk...")
-    history["epoch_times"] = epoch_times
-    history["batch_times"] = batch_times
-    # What the loop waited for: the next batch from the prefetch thread, and
-    # each epoch's checkpoint snapshots and writes (to the end of the flush).
-    history["data_wait_times"] = data_wait_times
-    history["checkpoint_times"] = checkpoint_times
-    with open(os.path.join(model_dir, "history.pkl"), "wb") as fd:
-        pickle.dump(history, fd)
-    LOGGER.info("Done!")
-    return history, False
+    else:
+        LOGGER.info("Done training. Saving results to disk...")
+        history["epoch_times"] = epoch_times
+        history["batch_times"] = batch_times
+        # What the loop waited for: the next batch from the prefetch thread,
+        # and each epoch's checkpoint snapshots and writes (to the end of
+        # the flush).
+        history["data_wait_times"] = data_wait_times
+        history["checkpoint_times"] = checkpoint_times
+        if chief:
+            with open(os.path.join(model_dir, "history.pkl"), "wb") as fd:
+                pickle.dump(history, fd)
+        LOGGER.info("Done!")
+    if group is not None:
+        dist.barrier(group)  # the ranks leave once the chief's files are written
+    return history, preempted

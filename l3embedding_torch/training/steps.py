@@ -14,18 +14,34 @@
     the whole step, the backward pass included: ``towers.ieee_fp32`` alone
     covers only the forward.
 
-On one device ``bn_mode="sync"`` is the plain step. ``"per_replica"``
-(the reference's BN over each replica's slice) needs several devices,
-which the port does not drive yet (ROADMAP.md, Queue 1 item 9).
+Data parallelism (``group``, a process group of several ranks, one card
+each; ``parallel/``): each rank steps on its own rows of the global batch.
+
+  * ``bn_mode="sync"``: every train-mode BatchNorm takes its statistics
+    over the global batch (``towers.sync_batch_norm``), the gradients are
+    summed over the ranks and divided by their number in one flat
+    all-reduce, which also carries the metrics, averaged. This is JAX's
+    step on a sharded batch, independent of the number of ranks.
+  * ``bn_mode="per_replica"`` (the reference's per-GPU BN, JAX's
+    ``steps.py:125-170``): each rank's BatchNorms see its rows alone; the
+    gradients, the new running statistics and the metrics are averaged
+    over the ranks (DDP's ``broadcast_buffers`` would copy rank 0's
+    statistics instead). With gradient accumulation it raises, as JAX
+    does. On one rank both modes are the plain step.
+
+With ``accum_steps > 1`` under ``sync``, microbatch i is every rank's i-th
+slice of its rows (JAX's is rows ``[i·B/k, (i+1)·B/k)`` of the global
+batch), so its statistics are those of a different set of samples.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.towers import ieee_fp32
+from ..models.towers import ieee_fp32, sync_batch_norm
 from .state import TrainState
 
 WEIGHT_DECAY = 1e-5
@@ -64,29 +80,63 @@ def _f32_step(state: TrainState):
     return ieee_fp32(p.is_cuda and state.model.dtype == torch.float32)
 
 
-def make_train_step(accum_steps: int = 1, bn_mode: str = "sync"):
+def _world(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _all_reduce_mean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Average each tensor over the group's ranks in one flat all-reduce;
+    → the averaged tensors (views of the one buffer, in order)."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    return out
+
+
+def _running_stats(model: nn.Module) -> list[torch.Tensor]:
+    return [b for name, b in model.named_buffers() if "running_" in name]
+
+
+def _average_running_stats(model: nn.Module, group) -> None:
+    """per_replica: every rank's new running statistics replaced by their
+    mean over the ranks (JAX's pmean of the new batch_stats)."""
+    stats = _running_stats(model)
+    with torch.no_grad():
+        for b, mean in zip(stats, _all_reduce_mean(stats, group)):
+            b.copy_(mean)
+
+
+def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     """→ fn(state, batch) → (state, metrics), updating `state` in place.
 
     batch: {"video": (B, 224, 224, 3) uint8 or f32, "audio": (B, 1, 48000)
-    int16 or f32, "label": (B, 2)}. metrics: {"loss": the mean
-    cross-entropy, "acc", "reg_loss": the L2 term} as 0-d tensors on the
-    model's device (no host sync).
+    int16 or f32, "label": (B, 2)}, this rank's rows under a group.
+    metrics: {"loss": the mean cross-entropy, "acc", "reg_loss": the L2
+    term} as 0-d tensors on the model's device (no host sync), averaged
+    over the group's ranks.
 
     accum_steps > 1 splits the batch into that many microbatches: the
     gradients are averaged over them before one Adam update, the BatchNorm
     statistics update once per microbatch, in sequence, and the metrics are
     the mean cross-entropy and accuracy with reg_loss the L2 term of the
     parameters before the step.
+
+    group: a process group (``parallel.data_group()``); None or a group of
+    one is the one-device step. bn_mode: module docstring.
     """
-    if bn_mode == "per_replica":
-        raise NotImplementedError(
-            "bn_mode='per_replica' needs several devices; multi-GPU training is "
-            "ROADMAP.md Queue 1 item 9"
-        )
-    if bn_mode != "sync":
+    if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if bn_mode == "per_replica" and accum_steps > 1:
+        raise NotImplementedError("per_replica BN with gradient accumulation")
+    if _world(group) == 1:
+        group = None
+    bn_group = group if bn_mode == "sync" else None
 
     def train_step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
@@ -99,7 +149,8 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync"):
         opt.zero_grad(set_to_none=True)
         with _f32_step(state):
             if accum_steps == 1:
-                logits = model(video, audio, train=True)
+                with sync_batch_norm(bn_group):
+                    logits = model(video, audio, train=True)
                 ce, acc = _ce_acc(logits, labels)
                 loss = ce + l2_penalty(model)
                 loss.backward()
@@ -110,7 +161,8 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync"):
                 ces, accs = [], []
                 for i in range(accum_steps):
                     sl = slice(i * mb, (i + 1) * mb)
-                    logits = model(video[sl], audio[sl], train=True)
+                    with sync_batch_norm(bn_group):
+                        logits = model(video[sl], audio[sl], train=True)
                     ce_i, acc_i = _ce_acc(logits, labels[sl])
                     (ce_i + l2_penalty(model)).backward()
                     ces.append(ce_i.detach())
@@ -118,22 +170,36 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync"):
                 for p in model.parameters():
                     p.grad.div_(accum_steps)
                 ce, acc = torch.stack(ces).mean(), torch.stack(accs).mean()
+            ce = ce.detach()
+            if group is not None:
+                params = list(model.parameters())
+                *grads, ce, acc, reg = _all_reduce_mean([p.grad for p in params] + [ce, acc, reg], group)
+                for p, g in zip(params, grads):
+                    p.grad.copy_(g)
+                if bn_mode == "per_replica":
+                    _average_running_stats(model, group)
             opt.step()
         state.step += 1
-        return state, {"loss": ce.detach(), "acc": acc, "reg_loss": reg}
+        return state, {"loss": ce, "acc": acc, "reg_loss": reg}
 
     return train_step
 
 
-def make_eval_step():
+def make_eval_step(group=None):
     """→ fn(state, batch) → {"loss": cross-entropy + L2, "acc"}, with the
-    BatchNorms on their running statistics; no update."""
+    BatchNorms on their running statistics; no update. Under a group of
+    several ranks the metrics are averaged over them."""
+    if _world(group) == 1:
+        group = None
 
     def eval_step(state: TrainState, batch: dict):
         model = state.model
         video, audio, labels = _inputs(batch, next(model.parameters()).device)
         with torch.no_grad(), _f32_step(state):
             ce, acc = _ce_acc(model(video, audio, train=False), labels)
-            return {"loss": ce + l2_penalty(model), "acc": acc}
+            loss = ce + l2_penalty(model)
+            if group is not None:
+                loss, acc = _all_reduce_mean([loss, acc], group)
+            return {"loss": loss, "acc": acc}
 
     return eval_step

@@ -34,6 +34,7 @@ from l3embedding_torch.compat.from_jax import (
 from l3embedding_torch.models.embedding import audio_embedding_fn, vision_embedding_fn
 from l3embedding_torch.models.registry import build_model
 from l3embedding_torch.training.checkpoints import load_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _leaf(rng, path, shape):

@@ -28,6 +28,7 @@ from l3embedding_torch.compat.from_jax import block1_conv_from_jax
 from l3embedding_torch.ops import block1_kernel, cuda_build
 from l3embedding_torch.tools import block1_spike
 from tools import pallas_block1_spike as spike
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -34,6 +34,7 @@ from l3embedding_torch.cli import generate_embedding_samples as cli
 from l3embedding_torch.data.audio_io import write_wav
 from l3embedding_torch.data.usc import datasets, features, folds
 from l3embedding_torch.embed.extract import EmbeddingRows
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SR = 48000
@@ -147,7 +148,8 @@ def test_05_cli_writes_the_jax_tree(corpus, jax_extractor, tmp_path, dataset):
     """The port's 05 CLI writes the npz tree that JAX's generators write:
     the same files under features/<dataset>/l3/short/<subset>/tiny_L3/fold<k>/,
     keys, dtypes, shapes and y, rows at cosine >= 0.99999; config_None.json
-    has the JAX CLI's keys plus the port's device."""
+    has the JAX CLI's keys plus the port's device and vggish_resources_dir
+    (the JAX CLI reads VGGish weights from resources/vggish only)."""
     argv = ["-lmp", corpus["ckpt"], "-lpt", "short", "-hs", str(HOP), dataset, corpus[dataset], str(tmp_path / "port")]
     if dataset == "us8k":
         argv[:0] = ["-ump", corpus["meta"]]
@@ -155,7 +157,7 @@ def test_05_cli_writes_the_jax_tree(corpus, jax_extractor, tmp_path, dataset):
     out = tmp_path / "port" / "features" / dataset / "l3" / "short" / "music_subset" / TINY
     with open(out / "config_None.json") as f:
         config = json.load(f)
-    assert set(config) == _jax_cli_keys(argv) | {"device"}
+    assert set(config) == _jax_cli_keys(argv) | {"device", "vggish_resources_dir"}
     assert config["device"] == "cpu" and config["features_dir"] == str(out)
 
     theirs_dir = str(tmp_path / "jax")
@@ -225,16 +227,20 @@ def test_pending_writer_writes_behind(tmp_path):
 
 
 def test_05_cli_refuses_vggish_and_int8_tiny(corpus, tmp_path):
-    """--features vggish raises naming Queue 1 item 7; --int8 on tiny_L3
-    raises JAX's refusal."""
+    """--features vggish refuses VGGish weights of the wrong shapes (the
+    baseline itself runs: tests/test_torch_port_vggish.py); an unknown
+    feature type raises; --int8 on tiny_L3 raises JAX's refusal."""
     base = ["-lmp", corpus["ckpt"], "--device", "cpu", "dcase2013", corpus["dcase2013"], str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main(["--features", "vggish"] + base)
+    bad = tmp_path / "vggish"
+    bad.mkdir()
+    np.savez(bad / "vggish_model.npz", **{"vggish/fc2/weights": np.zeros((128, 4096), np.float32)})
+    with pytest.raises(ValueError, match="shape mismatch for vggish/fc2/weights"):
+        cli.main(["--features", "vggish", "--vggish-resources-dir", str(bad)] + base)
     with pytest.raises(ValueError, match="int8 quantization supports the full L3 audio towers; "
                                          "'tiny_L3' uses TinyL3AudioTower"):
         cli.main(["--int8"] + base)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        features.compute_file_features("x.wav", "vggish")
+    with pytest.raises(ValueError, match="Invalid feature type: vggish2"):
+        features.compute_file_features("x.wav", "vggish2")
 
 
 def test_preprocessing_equals_jax():

@@ -42,6 +42,7 @@ from l3embedding_torch.embed.extract import (
     split_bucket,
 )
 from l3embedding_torch.models import loading
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "tiny_L3"

@@ -28,6 +28,7 @@ from l3embedding_torch.embed import quantized as tq
 from l3embedding_torch.embed.extract import frame_uniform
 from l3embedding_torch.ops import frontend as tfe
 from l3embedding_torch.ops import int8_conv_kernel as ick
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MODEL = "cnn_L3_melspec1"
 SR = 48000

@@ -43,6 +43,7 @@ from l3embedding_torch.embed.http_serve import make_server, serve_forever_in_thr
 from l3embedding_torch.embed.service import EmbeddingService
 from l3embedding_torch.embed.stream import StreamingEmbedder
 from l3embedding_torch.tools.serve_load import closed_loop, percentile
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48000

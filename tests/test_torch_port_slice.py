@@ -26,6 +26,7 @@ from l3embedding_torch.models.embedding import AUDIO_POOLINGS, _pool_flatten, au
 from l3embedding_torch.models.registry import MODELS, build_model
 from l3embedding_torch.models.towers import L3AudioTower
 from l3embedding_torch.training.checkpoints import load_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MODEL = "cnn_L3_melspec2"
 

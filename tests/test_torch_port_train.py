@@ -78,6 +78,7 @@ from l3embedding_torch.training.steps import (
     make_train_step,
     preprocess_batch,
 )
+from torch_port_threads import two_torch_threads  # noqa: F401
 
 LR = 1e-4
 
@@ -173,11 +174,11 @@ def port_state(model_type, dtype=torch.float32):
     return state
 
 
-def port_step(model_type, batch, dtype=torch.float32, accum_steps=1):
+def port_step(model_type, batch, dtype=torch.float32, accum_steps=1, bn_mode="sync"):
     """→ (new flax-layout trees, metrics, gradients by flax path) of the
     port's step."""
     state = port_state(model_type, dtype)
-    state, metrics = make_train_step(accum_steps=accum_steps)(
+    state, metrics = make_train_step(accum_steps=accum_steps, bn_mode=bn_mode)(
         state, {k: torch.from_numpy(x) for k, x in batch.items()}
     )
     assert state.step == 1
@@ -431,12 +432,20 @@ def test_train_step_melspec2_f32_shared_frontend(melspec2_f32, monkeypatch):
     print("melspec2 f32 step (JAX front end), worst:", worst)
 
 
-def test_train_step_melspec2_f32(melspec2_f32):
+@pytest.fixture(scope="module")
+def port_melspec2_f32(melspec2_f32):
+    """The port's own f32 step on the f32 fixture's batch (its front end the
+    kernel's plain version on the CPU)."""
+    batch, _ = melspec2_f32
+    return port_step("cnn_L3_melspec2", batch)
+
+
+def test_train_step_melspec2_f32(melspec2_f32, port_melspec2_f32):
     """The whole port step with its own front end (the kernel's plain
     version on the CPU): gradients at 0.99997 against JAX's (measured
-    0.9999782 worst)."""
+    0.9999756 worst on the module's two threads; 0.9999782 on eight)."""
     batch, theirs = melspec2_f32
-    ours = port_step("cnn_L3_melspec2", batch)
+    ours = port_melspec2_f32
     check_metrics(ours[1], theirs[1], 1e-5)
     worst = check_step("cnn_L3_melspec2", ours, theirs, grad_gate=0.99997)
     print("melspec2 f32 step, worst:", worst)
@@ -459,15 +468,16 @@ def _bn_fused(bn, x, dtype, train=False):
     return F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps).to(dtype)
 
 
-def test_train_step_melspec2_f32_vs_float64(melspec2_f32, monkeypatch):
+def test_train_step_melspec2_f32_vs_float64(melspec2_f32, port_melspec2_f32, monkeypatch):
     """The port's own f32 step against the same step with every conv,
     BatchNorm and dense layer in float64 (from the same f32 front-end
     output; the logits rounded to f32): every gradient leaf at cosine >=
-    0.99999 (measured 0.999992 worst, the vision input BN's bias). Printed
+    0.99999 (measured 0.9999918 worst on two threads, 0.999992 on eight,
+    the vision input BN's bias). Printed
     beside it: the step with torch's fused BN in place of the written-out
     one, against float64 and against JAX."""
     batch, (_, _, jax_grads) = melspec2_f32
-    ours = port_step("cnn_L3_melspec2", batch)[2]
+    ours = port_melspec2_f32[2]
     with monkeypatch.context() as m:
         m.setattr(towers, "_bn", _bn_fused)
         fused = port_step("cnn_L3_melspec2", batch)[2]
@@ -707,8 +717,12 @@ def test_preprocess_batch():
 
 
 def test_bn_modes():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(bn_mode="per_replica")
+    """per_replica needs no group (one rank: the sync step,
+    tests/test_torch_port_parallel.py) but refuses gradient accumulation,
+    as JAX's does; an unknown mode raises."""
+    make_train_step(bn_mode="per_replica")
+    with pytest.raises(NotImplementedError, match="gradient accumulation"):
+        make_train_step(accum_steps=2, bn_mode="per_replica")
     with pytest.raises(ValueError, match="unknown bn_mode"):
         make_train_step(bn_mode="global")
 

@@ -50,6 +50,7 @@ from l3embedding_torch.training.__main__ import main as cli_main
 from l3embedding_torch.training.loop import PREEMPT_FILE, train
 from l3embedding_torch.training.state import create_train_state
 from l3embedding_torch.training.steps import make_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -356,10 +357,22 @@ def test_train_new_run_dir_and_resume(corpus, tmp_path):
     assert len(hist["loss"]) == 1
 
 
-def test_preempt_resume_matches_uninterrupted(corpus, tmp_path):
+@pytest.fixture(scope="module")
+def finished_run_dir(corpus, tmp_path_factory):
+    """One uninterrupted 2-epoch run of ARGS, shared by the tests that
+    compare with it or resume a copy of it."""
+    train_dir, valid_dir = corpus
+    model_dir, _ = train(train_dir, valid_dir, str(tmp_path_factory.mktemp("finished")), device="cpu", **ARGS)
+    return model_dir
+
+
+def test_preempt_resume_matches_uninterrupted(corpus, finished_run_dir, tmp_path):
+    """A run preempted after 4 steps and resumed ends bit for bit where the
+    shared uninterrupted run ends (checkpoint_interval writes periodic files
+    only, so the two runs' model_latest.ckpt compare at either setting)."""
     train_dir, valid_dir = corpus
     args = dict(ARGS, checkpoint_interval=10)
-    dir_a, _ = train(train_dir, valid_dir, str(tmp_path / "a"), device="cpu", **args)
+    dir_a = finished_run_dir
     dir_b, _ = train(train_dir, valid_dir, str(tmp_path / "b"), device="cpu",
                      preempt_after_steps=4, **args)
     with open(os.path.join(dir_b, PREEMPT_FILE)) as f:
@@ -378,9 +391,10 @@ def test_preempt_resume_matches_uninterrupted(corpus, tmp_path):
 
 
 @pytest.fixture
-def finished_run(corpus, tmp_path):
-    train_dir, valid_dir = corpus
-    model_dir, _ = train(train_dir, valid_dir, str(tmp_path), device="cpu", **ARGS)
+def finished_run(finished_run_dir, tmp_path):
+    """A copy of the shared finished run, for one test to resume or break."""
+    model_dir = str(tmp_path / "finished")
+    shutil.copytree(finished_run_dir, model_dir)
     return model_dir
 
 
@@ -402,15 +416,24 @@ def test_bad_preempt_marker_falls_back_to_epoch_boundary(corpus, finished_run, m
     assert len(hist["loss"]) == 1 and np.isfinite(float(rows[2]["acc"]))
 
 
+@pytest.fixture(scope="module")
+def preempted_run_dir(corpus, tmp_path_factory):
+    """One run preempted after 2 steps, shared: each test breaks a copy."""
+    train_dir, valid_dir = corpus
+    model_dir, _ = train(train_dir, valid_dir, str(tmp_path_factory.mktemp("preempted")), device="cpu",
+                         preempt_after_steps=2, **ARGS)
+    return model_dir
+
+
 @pytest.mark.parametrize("field,value,match", [
     ("per_process_batch_size", 4, "batch size"),
     ("train_epoch_size", 7, "train_epoch_size"),
     ("process_count", 2, "2-process"),
 ])
-def test_preempt_geometry_mismatch_rejected(corpus, tmp_path, field, value, match):
+def test_preempt_geometry_mismatch_rejected(corpus, preempted_run_dir, tmp_path, field, value, match):
     train_dir, valid_dir = corpus
-    model_dir, _ = train(train_dir, valid_dir, str(tmp_path), device="cpu",
-                         preempt_after_steps=2, **ARGS)
+    model_dir = str(tmp_path / "preempted")
+    shutil.copytree(preempted_run_dir, model_dir)
     path = os.path.join(model_dir, PREEMPT_FILE)
     with open(path) as f:
         info = json.load(f)
