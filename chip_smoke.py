@@ -2,7 +2,9 @@
 kernel sources (mel and linear spectrogram front ends, block-1 conv and
 GEMM probe, the int8 conv) from this checkout, one nvcc each and all at
 once, holds each of the five kernels against its plain PyTorch version
-(the int8 conv at every conv shape of the cnn_L3_melspec2 int8 tower),
+(the int8 conv at every conv shape of the cnn_L3_melspec2 int8 tower and
+at its three pooled calls; its wgmma kernels' SASS must show integer
+wgmma fed by TMA),
 then drives the
 port's paths end to end through their user entry points: embedding
 extraction for all five model types (cnn_L3_melspec2 and cnn_L3_orig at
@@ -524,104 +526,93 @@ def phase_block1(dev):
 
 
 PEAK_INT8_TC = 1979e12
-# The int8 tower's convs at 64 windows of cnn_L3_melspec2: (H, W, Cin, Cout,
-# requant epilogue), blocks 0-6 then the embedding conv.
-INT8_CONV_SHAPES = ((256, 199, 1, 64, True), (256, 199, 64, 64, True), (128, 99, 64, 128, True),
-                    (128, 99, 128, 128, True), (64, 49, 128, 256, True), (64, 49, 256, 256, True),
-                    (32, 24, 256, 512, True), (32, 24, 512, 512, False))
 
 
-def int8_conv_bound(batch, h, w, cin, cout, requant) -> tuple[float, float]:
-    """(ops seconds, bytes seconds) of one int8 conv: 2·pixels·9·Cin·Cout
-    operations at the dense int8 tensor-core peak; x, the weights, deq and
-    bias read once and the output written once at the HBM rate."""
-    npix = batch * h * w
-    ops = 2.0 * npix * 9 * cin * cout
-    bytes_ = npix * cin + 9 * cin * cout + 2 * cout * 4 + npix * cout * (1 if requant else 4)
-    return ops / PEAK_INT8_TC, bytes_ / PEAK_HBM
+def check_int8_sass():
+    """The int8 conv's design as its SASS shows it: each wgmma kernel
+    function (one per epilogue: requant, requant + pool, dequant) issues
+    integer wgmma (IGMMA) fed by TMA (UTMALDG) and no mma.sync (IMMA)."""
+    from l3embedding_torch.tools import int8_ab
+
+    sass = int8_ab.library_sass()
+    log(f"int8_conv SASS (cuobjdump -sass): {json.dumps(sass)}")
+    wgmma = {k: v for k, v in sass.items() if k.startswith("int8_conv3x3_wgmma_kernel")}
+    if len(wgmma) != 3 or not all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 and v["IMMA"] == 0 for v in wgmma.values()):
+        raise SystemExit("the int8 conv's wgmma kernels are not integer wgmma fed by TMA")
 
 
-def library_int8_conv(x, w_packed, deq, bias, s_next):
-    """im2col (nine shifted views of the zero-padded NHWC input, K padded as
-    the packed weights are) + torch._int_mm + the epilogue in torch ops: the
-    int8 conv's yardstick, timed only here; the port never calls it."""
-    from l3embedding_torch.ops import int8_conv_kernel as ick
-
-    batch, h, w, cin = x.shape
-    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    cols = torch.stack([xp[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)], dim=3)
-    cols = cols.reshape(batch * h * w, 9 * cin)
-    if cols.shape[1] != w_packed.shape[1]:
-        cols = torch.nn.functional.pad(cols, (0, w_packed.shape[1] - cols.shape[1]))
-    acc = torch._int_mm(cols, w_packed.t()).reshape(batch, h, w, -1)
-    if s_next is None:
-        return ick.dequant_epilogue(acc, deq, bias)
-    return ick.requant_epilogue(acc, deq, bias, s_next)
+def int8_gate(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """int8 outputs equal but for at most 1 LSB on at most 1e-4 of the
+    elements; f32 within 1e-6 of the largest |value|. → (max |d|, ok)."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if got.dtype == torch.int8:
+        off = (diff > 0).float().mean().item()
+        ok = err <= 1 and off <= 1e-4
+        detail = f"max |d| {err:g} LSB on {off:.2e} of the elements (<= 1 LSB on <= 1e-4)"
+    else:
+        rel = err / want.abs().max().item()
+        ok = rel <= 1e-6
+        detail = f"max |d| {err:.3g}, {rel:.2e} of max |ref| (<= 1e-6)"
+    log(f"{what}: {detail}")
+    return err, ok and got.dtype == want.dtype and got.shape == want.shape
 
 
 def phase_int8_kernel(dev) -> dict:
     """The int8 conv kernel against its plain version at each conv shape of
-    the cnn_L3_melspec2 int8 tower at 64 windows: int8 outputs equal but for
-    at most 1 LSB on at most 1e-4 of the elements, the f32 epilogue within
-    1e-6 of the largest |value|; kernel ms (CUDA events, 20 calls), plain ms,
-    the library (im2col + torch._int_mm + torch epilogue) and the bound at
-    each shape, then their sums over the tower."""
+    the cnn_L3_melspec2 int8 tower at 64 windows (tools/int8_ab.SHAPES), and
+    at the three pooled calls of blocks 1, 3 and 5 (the 2×2 pool in the
+    kernel's epilogue; the plain conv then pool2_int8): int8 outputs equal
+    but for at most 1 LSB on at most 1e-4 of the elements, the f32 epilogue
+    within 1e-6 of the largest |value|. Kernel ms (CUDA events, 20 calls),
+    plain ms, the library (im2col + torch._int_mm + torch epilogue, + the
+    pool) and the bound (a pooled call writes a quarter of the bytes) at
+    each, then their sums over the tower as it runs (the pooled call where
+    it pools). The SASS of the wgmma kernels is checked first."""
     from l3embedding_torch.ops import int8_conv_kernel as ick
+    from l3embedding_torch.tools import int8_ab
 
+    check_int8_sass()
     gen = torch.Generator(device=dev).manual_seed(9)
     shapes, max_err = [], 0.0
-    for h, w, cin, cout, requant in INT8_CONV_SHAPES:
-        x = torch.randint(-127, 128, (BATCH, h, w, cin), device=dev, generator=gen, dtype=torch.int8)
-        if cin > 1:
-            x = x.clamp_(min=0)  # the tower's inputs past the first conv are ReLU'd
-        wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=torch.Generator().manual_seed(cin + cout),
-                           dtype=torch.int8)
-        w_packed = ick.pack_weights(wq.numpy()).to(dev)
-        acc_std = (9 * cin) ** 0.5 * 127 * 127 / 3
-        deq = (torch.rand(cout, device=dev, generator=gen) + 0.5) / acc_std
-        bias = torch.randn(cout, device=dev, generator=gen) * 0.1
-        s_next = torch.tensor([2.5 / 127], device=dev) if requant else None
-        got = ick.conv3x3_s8(x, w_packed, deq, bias, s_next)
-        want = ick.conv3x3_s8_ref(x, w_packed, deq, bias, s_next)
-        torch.cuda.synchronize()
-        what = f"int8_conv ({BATCH}, {h}, {w}, {cin}) -> {cout} {'requant' if requant else 'dequant'}"
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        if requant:
-            off = (diff > 0).float().mean().item()
-            ok = err <= 1 and off <= 1e-4
-            detail = f"max |d| {err:g} LSB on {off:.2e} of the elements (<= 1 LSB on <= 1e-4)"
-        else:
-            rel = err / want.abs().max().item()
-            ok = rel <= 1e-6
-            detail = f"max |d| {err:.3g}, {rel:.2e} of max |ref| (<= 1e-6)"
-        lib = library_int8_conv(x, w_packed, deq, bias, s_next)
-        lib_err = (lib.float() - want.float()).abs().max().item()
-        log(f"{what}: {detail}; library max |d| {lib_err:g}")
-        if not ok or got.dtype != want.dtype or got.shape != want.shape:
-            raise SystemExit(f"{what}: the kernel disagrees with its plain version")
-        max_err = max(max_err, err)
-        del got, want, lib
-        ms = cuda_ms(lambda: ick.conv3x3_s8(x, w_packed, deq, bias, s_next))
-        plain_ms = cuda_ms(lambda: ick.conv3x3_s8_ref(x, w_packed, deq, bias, s_next), iters=3, warmup=1)
-        library_ms = cuda_ms(lambda: library_int8_conv(x, w_packed, deq, bias, s_next), iters=5, warmup=1)
-        ops_s, bytes_s = int8_conv_bound(BATCH, h, w, cin, cout, requant)
-        bound_ms = max(ops_s, bytes_s) * 1e3
-        log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (im2col + _int_mm + "
-            f"epilogue) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({'operations' if ops_s > bytes_s else 'bytes'}), {100 * bound_ms / ms:.1f} % of bound, "
-            f"{2.0 * BATCH * h * w * 9 * cin * cout / ms / 1e9:.1f} TOP/s")
-        shapes.append(dict(shape=[BATCH, h, w, cin, cout], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, ops_ms=ops_s * 1e3, bytes_ms=bytes_s * 1e3))
-        del x
+    for h, w, cin, cout, requant, pooled in int8_ab.SHAPES:
+        args = int8_ab.operands(h, w, cin, cout, requant, dev, gen)
+        for pool in (False, True) if pooled else (False,):
+            what = (f"int8_conv ({BATCH}, {h}, {w}, {cin}) -> {cout} {'requant' if requant else 'dequant'}"
+                    f"{' + 2x2 pool' if pool else ''}")
+            got = ick.conv3x3_s8(*args, pool=pool)
+            want = ick.conv3x3_s8_ref(*args, pool=pool)
+            torch.cuda.synchronize()
+            err, ok = int8_gate(what, got, want)
+            lib_err = (int8_ab.library_int8_conv(*args, pool=pool).float() - want.float()).abs().max().item()
+            log(f"{what}: library max |d| {lib_err:g}")
+            if not ok:
+                raise SystemExit(f"{what}: the kernel disagrees with its plain version")
+            max_err = max(max_err, err)
+            del got, want
+            ms = cuda_ms(lambda: ick.conv3x3_s8(*args, pool=pool))
+            plain_ms = cuda_ms(lambda: ick.conv3x3_s8_ref(*args, pool=pool), iters=3, warmup=1)
+            library_ms = cuda_ms(lambda: int8_ab.library_int8_conv(*args, pool=pool), iters=5, warmup=1)
+            ops_s, bytes_s = int8_ab.int8_conv_bound(BATCH, h, w, cin, cout, requant, pool)
+            bound_ms = max(ops_s, bytes_s) * 1e3
+            log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (im2col + _int_mm + "
+                f"epilogue{' + pool' if pool else ''}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({'operations' if ops_s > bytes_s else 'bytes'}), {100 * bound_ms / ms:.1f} % of bound, "
+                f"{2.0 * BATCH * h * w * 9 * cin * cout / ms / 1e9:.1f} TOP/s")
+            shapes.append(dict(shape=[BATCH, h, w, cin, cout], pool=pool, on_path=pool == pooled, ms=ms,
+                               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                               ops_ms=ops_s * 1e3, bytes_ms=bytes_s * 1e3))
+        del args
         torch.cuda.empty_cache()
-    total = {k: sum(s[k] for s in shapes) for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")}
-    bound_ms = sum(s["bound_ms"] for s in shapes)
-    log(f"int8_conv tower sum over {len(shapes)} convs at B={BATCH}: kernel {total['ms']:.4f} ms, plain "
-        f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({100 * bound_ms / total['ms']:.1f} % of bound)")
+    tower = [s for s in shapes if s["on_path"]]
+    total = {k: sum(s[k] for s in tower) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")}
+    log(f"int8_conv tower sum over its {len(tower)} calls at B={BATCH} (pooled after blocks 1, 3, 5): kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f} % of bound); "
+        + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
     return {True: dict(max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
-                       library_ms=total["library_ms"], bound_ms=bound_ms,
+                       library_ms=total["library_ms"], bound_ms=total["bound_ms"],
                        bound_by="operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
                        shapes=shapes)}
 
@@ -1604,12 +1595,14 @@ def phase_corpus(dev):
 REPO = os.path.dirname(os.path.abspath(__file__))
 DDP_BATCH = 8  # the global batch of the data-parallel check
 DDP_TIMING_BATCH = 64  # rows per card in the scaling runs
-# The vision input BN's bias gradient (3 values) is the sum over every
-# pixel of the first conv's input gradient, whose per-channel sums cancel
-# through the BN after that conv: what is left is a border residual. Each
-# rank's part is several times the global sum, so the card's f32 conv
-# rounding at a rank's rows shows in it more than in any other leaf. It is
-# held to 0.999, every other leaf to 0.9999.
+# The vision input BN's bias gradient (3 values): the sum over every pixel
+# of the first conv's input gradient, whose per-channel sums cancel through
+# the BN after that conv. On these weights it is ill-conditioned in either
+# package: scaling the input video by 1 ± 2^-22 moves its float64 value to
+# cosine ~0.9998, and the f32 steps of the port and of JAX land 1e-4 to 2e-4
+# from float64 as the input's last bits fall (PERF.md §6;
+# tests/torch_port_bn_precision.py). It is held to 0.999, every other leaf
+# to 0.9999, and its cosines to a float64 step on this card are logged.
 DDP_CANCELLING_LEAF = "vision_model.input_bn.bias"
 
 
@@ -1651,7 +1644,8 @@ def phase_ddp(dev):
     sync step at a global batch of 8 against one process on the whole batch
     (loss within 1e-5, the same accuracy, every gradient leaf at cosine >=
     0.9999 but the BN-fed conv biases and DDP_CANCELLING_LEAF, held to
-    0.999, BN batch statistics within 1e-3), the
+    0.999 and logged against a float64 step, BN batch statistics within
+    1e-3), the
     bf16 step at phase_train's bf16 card gates, per_replica's running statistics
     against the mean of one-process steps on each rank's rows, the ranks'
     states equal, run_epochs in one run dir written by the chief alone with
@@ -1670,7 +1664,8 @@ def phase_ddp(dev):
     batches = avc_batches(7, DDP_BATCH, seed=31)
     stacked = {k: np.stack([b[k] for b in batches]) for k in ("video", "audio", "label")}
     ref = {"f32": one_train_step(torch.float32, dev, batches[0]),
-           "bf16": one_train_step(torch.bfloat16, dev, batches[0])}
+           "bf16": one_train_step(torch.bfloat16, dev, batches[0]),
+           "f64": one_train_step(torch.float64, dev, batches[0])}
 
     def per_replica_want(nproc):
         """The mean of the running statistics of nproc one-process steps,
@@ -1712,6 +1707,13 @@ def phase_ddp(dev):
                         f"{cos[DDP_CANCELLING_LEAF]:.7f}; lowest {[(n, round(cos[n], 7)) for n in ranked[:4]]}), "
                         f"BN batch statistics max relative error {stat_err:.2e}")
                 if name == "f32":
+                    leaf = {k: v[DDP_CANCELLING_LEAF] for k, v in
+                            (("ranks", got[name][0]), ("one process", ref["f32"][1]), ("float64", ref["f64"][1]))}
+                    f64 = {k: leaf_cosines({0: v}, {0: leaf["float64"]})[0] for k, v in leaf.items() if k != "float64"}
+                    line += (f"; {DDP_CANCELLING_LEAF} {[round(float(v), 9) for v in leaf['ranks']]} (ranks), "
+                             f"{[round(float(v), 9) for v in leaf['one process']]} (one process), "
+                             f"{[round(float(v), 9) for v in leaf['float64']]} (float64 step), cosine to float64 "
+                             + ", ".join(f"{k} {c:.7f}" for k, c in f64.items()))
                     ok = (loss_rel <= 1e-5 and cos[worst] >= 0.9999 and cos[DDP_CANCELLING_LEAF] >= 0.999
                           and stat_err <= 1e-3)
                 else:

@@ -13,7 +13,8 @@ The recipe is the JAX package's, on the port's towers:
     so each requantize fuses into the previous conv's epilogue and
     activations stay int8 from the first conv to the embedding conv.
   * 2×2 max-pools taken on the int8 tensors: the epilogue is monotone
-    non-decreasing, so pool-then-requantize equals requantize-then-pool.
+    non-decreasing, so pool-then-requantize equals requantize-then-pool;
+    the conv kernel takes them in its epilogue (``conv3x3_s8(pool=True)``).
 
 On the card every conv is the hand-written kernel of
 ``ops/int8_conv_kernel.py`` (``csrc/int8_conv.cu``: s8 × s8 → s32 with the
@@ -215,19 +216,13 @@ def folded_forward(fold: _FoldedTower, audio: torch.Tensor, pool, *, f32_fronten
     return emb
 
 
-def _pool2_int8(q: torch.Tensor) -> torch.Tensor:
-    """2×2 VALID max-pool of an NHWC int8 tensor (a reshape and amax)."""
-    b, h, w, c = q.shape
-    q = q[:, : h // 2 * 2, : w // 2 * 2]
-    return q.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-
-
 class QuantizedTower(nn.Module):
     """The int8 tower on one device: (B, 1, n) or (B, n) PCM → (B, dim) f32.
 
     Front end (+ the folded input BN) → quantize at act_scales[0] → 7 int8
-    convs with the requant epilogue (2×2 int8 pools after blocks 1, 3, 5) →
-    the embedding conv with the dequant epilogue → the embedding pool. Its
+    convs with the requant epilogue (blocks 1, 3 and 5 with the 2×2 int8
+    pool in the same call) → the embedding conv with the dequant epilogue →
+    the embedding pool. Its
     buffers hold the packed int8 weights, their scales and biases, the
     activation scales and deq[i] = act_scales[i]·wscale[i] (f32)."""
 
@@ -263,9 +258,7 @@ class QuantizedTower(nn.Module):
         q = torch.clamp(torch.round(y / s[0]), -127, 127).to(torch.int8).contiguous()
         for i in range(7):
             q = conv3x3_s8(q, getattr(self, f"w{i}"), getattr(self, f"deq{i}"),
-                           getattr(self, f"bias{i}"), s[i + 1 : i + 2])
-            if i in _POOL_AFTER:
-                q = _pool2_int8(q)
+                           getattr(self, f"bias{i}"), s[i + 1 : i + 2], pool=i in _POOL_AFTER)
         feat = conv3x3_s8(q, self.w7, self.deq7, self.bias7)
         return _pool_flatten(feat, self.pool)
 

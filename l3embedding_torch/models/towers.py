@@ -44,9 +44,17 @@ BN_MOMENTUM = 0.99
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(
-        x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding
-    )
+    """conv(x) + bias in `dtype`. When an f32 bias takes a gradient, the bias
+    is added on its own (flax's order), so that autograd sums its gradient
+    with torch's reduction: the conv backward's bias sum runs one float32
+    accumulator over every output position, and for a bias that feeds a
+    train-mode BN (zero gradient but for rounding) it left 1.7e-2 of the
+    BN's bias gradient at 8 tiny_L3 rows, against 3e-14 in a float64 step
+    and 1.3e-4 in JAX."""
+    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+    if dtype == torch.float32 and torch.is_grad_enabled() and conv.bias.requires_grad:
+        return F.conv2d(x.to(dtype), w, None, padding=conv.padding) + b.view(1, -1, 1, 1)
+    return F.conv2d(x.to(dtype), w, b, padding=conv.padding)
 
 
 # The process group that train-mode BatchNorm takes its batch statistics
@@ -123,9 +131,10 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
     float64, against 0.999992 written out).
 
     Inside ``sync_batch_norm(group)`` the statistics are the global batch's
-    (``_batch_moments``); outside it, this batch's, as above.
+    (``_batch_moments``); outside it, this batch's, as above. A float64
+    model (the reference step of the tests) keeps float64 here.
     """
-    x = x.float()
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if not train:
         y = F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,

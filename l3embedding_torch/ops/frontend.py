@@ -15,11 +15,14 @@ layout.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import dsp_ref
@@ -103,6 +106,26 @@ def frame_signal(x: torch.Tensor, n_dft: int, hop: int, padding: str) -> torch.T
     return x.unfold(-1, n_dft, hop)
 
 
+# The process group whose global batch a batch-global dB reference spans
+# (``batch_global_db``); None: this process's batch.
+_DB_GROUP: contextvars.ContextVar = contextvars.ContextVar("db_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_global_db(group):
+    """Within the block, ``amplitude_to_db(per_sample=False)`` takes its
+    reference over the global batch of `group`'s ranks: this batch's max,
+    all-reduced with MAX over them (JAX's max over a batch sharded on the
+    mesh). None, or a group of one, leaves the one-process path."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    token = _DB_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _DB_GROUP.reset(token)
+
+
 def amplitude_to_db(
     x: torch.Tensor,
     amin: float = 1e-10,
@@ -111,12 +134,17 @@ def amplitude_to_db(
     per_sample: bool = True,
 ) -> torch.Tensor:
     """Max-referenced dB: 10·log10(max(x, amin)) − max, floored at
-    −dynamic_range. per_sample=False takes one max over the whole batch."""
+    −dynamic_range. per_sample=False takes one max over the whole batch
+    (over every rank's inside ``batch_global_db``)."""
     log_spec = 10.0 * torch.log10(torch.clamp(x, min=amin))
     if per_sample:
         ref = torch.amax(log_spec, dim=sample_axes, keepdim=True)
     else:
         ref = torch.amax(log_spec)
+        group = _DB_GROUP.get()
+        if group is not None:
+            ref = ref.detach().clone()
+            dist.all_reduce(ref, op=dist.ReduceOp.MAX, group=group)
     return torch.clamp(log_spec - ref, min=-dynamic_range)
 
 

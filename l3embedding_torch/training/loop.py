@@ -357,11 +357,6 @@ def _train_impl(
             f"use_mesh=False trains on one device, but this process is one of {world_size()}: "
             "launch one process, or keep use_mesh"
         )
-    if group is not None and db_batch_global:
-        raise NotImplementedError(
-            "db_batch_global spans the global batch; several processes would each take "
-            "their own rows' reference"
-        )
     proc_count, chief = world_size(), rank() == 0
     for name, size in (("train_batch_size", train_batch_size),
                        ("validation_batch_size", validation_batch_size)):

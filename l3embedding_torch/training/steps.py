@@ -29,9 +29,17 @@ each; ``parallel/``): each rank steps on its own rows of the global batch.
     statistics instead). With gradient accumulation it raises, as JAX
     does. On one rank both modes are the plain step.
 
-With ``accum_steps > 1`` under ``sync``, microbatch i is every rank's i-th
-slice of its rows (JAX's is rows ``[i·B/k, (i+1)·B/k)`` of the global
-batch), so its statistics are those of a different set of samples.
+With ``accum_steps > 1`` under ``sync``, microbatch i is JAX's: rows
+``[i·B/k, (i+1)·B/k)`` of the global batch (the ranks' rows in rank order),
+each rank taking its share of it in ``shard_batch`` order
+(``_microbatch_shares``), so every BatchNorm's statistics of microbatch i
+are over JAX's rows.
+
+With ``db_batch_global`` models, the dB reference of the front end spans
+the global batch as JAX's max over a sharded batch does
+(``ops/frontend.batch_global_db``): the train step's BN group (none under
+``per_replica``, whose replicas see their rows alone, as under JAX's
+shard_map), the eval step's group.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.towers import ieee_fp32, sync_batch_norm
+from ..ops.frontend import batch_global_db
+from ..parallel.distributed import comm_device
 from .state import TrainState
 
 WEIGHT_DECAY = 1e-5
@@ -97,6 +107,29 @@ def _all_reduce_mean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     return out
 
 
+def _microbatch_shares(batch: dict, accum_steps: int, group) -> dict:
+    """This rank's rows for an accumulated step: of each of the accum_steps
+    microbatches of the global batch (rows [i·B/k, (i+1)·B/k) of the ranks'
+    rows in rank order, JAX's microbatch i), block r of n, concatenated; so
+    the step's i-th slice is rank r's share of JAX's microbatch i. The rows
+    are gathered from every rank first (each leaf as bytes)."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    dev = comm_device(group)
+    out = {}
+    for k, x in batch.items():
+        x = torch.as_tensor(x)
+        local = x.reshape(x.shape[0], -1).contiguous().view(torch.uint8).to(dev)
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local, group=group)
+        rows = torch.cat(parts).view(x.dtype).reshape((-1,) + tuple(x.shape[1:]))
+        b = rows.shape[0]
+        if b % (accum_steps * n):
+            raise ValueError(f"global batch {b} not divisible into {accum_steps} microbatches of {n} ranks")
+        mb, share = b // accum_steps, b // accum_steps // n
+        out[k] = torch.cat([rows[i * mb + r * share:i * mb + (r + 1) * share] for i in range(accum_steps)])
+    return out
+
+
 def _running_stats(model: nn.Module) -> list[torch.Tensor]:
     return [b for name, b in model.named_buffers() if "running_" in name]
 
@@ -114,7 +147,9 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     """→ fn(state, batch) → (state, metrics), updating `state` in place.
 
     batch: {"video": (B, 224, 224, 3) uint8 or f32, "audio": (B, 1, 48000)
-    int16 or f32, "label": (B, 2)}, this rank's rows under a group.
+    int16 or f32, "label": (B, 2)}, this rank's rows under a group (in
+    ``shard_batch`` order; with accum_steps > 1 the step redistributes them
+    into JAX's microbatches).
     metrics: {"loss": the mean cross-entropy, "acc", "reg_loss": the L2
     term} as 0-d tensors on the model's device (no host sync), averaged
     over the group's ranks.
@@ -141,6 +176,8 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     def train_step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         device = next(model.parameters()).device
+        if group is not None and accum_steps > 1:
+            batch = _microbatch_shares(batch, accum_steps, group)
         video, audio, labels = _inputs(batch, device)
         b = labels.shape[0]
         if b % accum_steps:
@@ -149,7 +186,7 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
         opt.zero_grad(set_to_none=True)
         with _f32_step(state):
             if accum_steps == 1:
-                with sync_batch_norm(bn_group):
+                with sync_batch_norm(bn_group), batch_global_db(bn_group):
                     logits = model(video, audio, train=True)
                 ce, acc = _ce_acc(logits, labels)
                 loss = ce + l2_penalty(model)
@@ -161,7 +198,7 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
                 ces, accs = [], []
                 for i in range(accum_steps):
                     sl = slice(i * mb, (i + 1) * mb)
-                    with sync_batch_norm(bn_group):
+                    with sync_batch_norm(bn_group), batch_global_db(bn_group):
                         logits = model(video[sl], audio[sl], train=True)
                     ce_i, acc_i = _ce_acc(logits, labels[sl])
                     (ce_i + l2_penalty(model)).backward()
@@ -195,7 +232,7 @@ def make_eval_step(group=None):
     def eval_step(state: TrainState, batch: dict):
         model = state.model
         video, audio, labels = _inputs(batch, next(model.parameters()).device)
-        with torch.no_grad(), _f32_step(state):
+        with torch.no_grad(), _f32_step(state), batch_global_db(group):
             ce, acc = _ce_acc(model(video, audio, train=False), labels)
             loss = ce + l2_penalty(model)
             if group is not None:

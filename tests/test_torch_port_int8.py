@@ -191,6 +191,52 @@ def test_int8_conv_plain_equals_jax_conv(cin):
     assert not ick.LAUNCHES
 
 
+@pytest.mark.parametrize("w", [5, 6])
+def test_pooled_plain_conv_equals_jax_requant_then_reduce_window(w):
+    """conv3x3_s8_ref(..., pool=True), the plain version of the kernel's
+    pooled call, equals JAX's requant conv followed by its 2×2 VALID
+    reduce_window (quantized.py:394-404) bit for bit, at an odd H with an
+    odd W (the last row and column dropped) and with an even W."""
+    rng = np.random.RandomState(w)
+    x = np.maximum(rng.randint(-127, 128, (2, 7, w, 64)), 0).astype(np.int8)
+    wq = rng.randint(-127, 128, (3, 3, 64, 64)).astype(np.int8)
+    deq = (rng.uniform(0.5, 1.5, 64) / (np.sqrt(9 * 64) * 127 * 73)).astype(np.float32)
+    bias = (rng.randn(64) * 0.1).astype(np.float32)
+    s_next = np.float32(2.5 / 127)
+    z = jq._conv(jnp.asarray(x), jnp.asarray(wq), jnp.int32)
+    q = jnp.clip(jnp.round(jnp.maximum(z.astype(jnp.float32) * deq + bias, 0.0) / s_next), -127, 127)
+    want = np.asarray(jax.lax.reduce_window(q.astype(jnp.int8), jnp.int8(-128), jax.lax.max,
+                                            (1, 2, 2, 1), (1, 2, 2, 1), "VALID"))
+    args = (torch.from_numpy(x), ick.pack_weights(wq), torch.from_numpy(deq), torch.from_numpy(bias),
+            torch.tensor([s_next]))
+    got = ick.conv3x3_s8(*args, pool=True)
+    assert got.dtype == torch.int8 and got.shape == (2, 3, w // 2, 64) and np.array_equal(got.numpy(), want)
+    assert torch.equal(ick.conv3x3_s8_ref(*args, pool=True), got)
+    with pytest.raises(ValueError, match="pool follows the requant epilogue"):
+        ick.conv3x3_s8(*args[:4], pool=True)
+
+
+def test_quantized_tower_pooled_call_keeps_cpu_rows(port_ext, monkeypatch):
+    """QuantizedTower takes blocks 1, 3 and 5 with the pool in the conv call;
+    on the CPU its rows equal, bit for bit, those of the same tower with the
+    conv unpooled and pool2_int8 after it (the forward before the pooled
+    call)."""
+    tower = port_ext.q.towers[0]
+    x = torch.from_numpy(_audio(2, seed=4)[:, None, :])
+    got = tower(x)
+    calls = []
+
+    def unpooled(q, w, deq, bias, s_next=None, pool=False):
+        calls.append(pool)
+        out = ick.conv3x3_s8(q, w, deq, bias, s_next)
+        return ick.pool2_int8(out) if pool else out
+
+    monkeypatch.setattr(tq, "conv3x3_s8", unpooled)
+    want = tower(x)
+    assert calls == [False, True, False, True, False, True, False, False]
+    assert torch.equal(got, want)
+
+
 def test_requant_epilogue_rounds_ties_like_jax():
     """Half-way cases made on purpose (every value exact in f32): round half
     to even, ReLU before the division, clip at ±127, equal to JAX's formula

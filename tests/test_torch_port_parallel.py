@@ -6,8 +6,10 @@ One 2-rank gloo job on tiny_L3 (``tests/torch_port_parallel_worker.py``,
 ``OMP_NUM_THREADS=1``) is started once for the module and leaves its results
 in npz, ckpt and JSON files; JAX's steps run in this process on 2 of the 8
 virtual CPU devices, from the same seeded step-0 state and the same global
-batch of 8 (``test_torch_port_train.variables``, He-scaled kernels, BN
-statistics away from the identity).
+batches of 4 and 8 rows (``test_torch_port_train.variables``, He-scaled
+kernels, BN statistics away from the identity): the sync step, at 4 and 8
+rows, with gradient accumulation (JAX's microbatches of the global batch)
+and on a db_batch_global model (one reference over every rank's rows).
 
 Gates (those of ``test_torch_port_train.py``): the loss within 1e-5
 relative, the same accuracy, every gradient leaf, Adam moment, new
@@ -15,7 +17,8 @@ parameter and new BN statistic at cosine >= 0.99999 with its norm within
 2 %; a conv bias that feeds a train-mode BN has a gradient that is zero but
 for rounding and is held to that instead. Each planted fault (a moment
 reduction autograd does not see, per-rank variances averaged, DDP's
-``broadcast_buffers`` under ``per_replica``) must fail one of them.
+``broadcast_buffers`` under ``per_replica``, each rank's own dB reference
+under db_batch_global) must fail one of them.
 """
 
 import json
@@ -53,7 +56,20 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = "tiny_L3"
 BATCH = 4
-FAULTS = ("fault_detached", "fault_var_avg", "fault_broadcast_buffers")
+FAULTS = ("fault_detached", "fault_var_avg", "fault_broadcast_buffers", "fault_db_local")
+
+
+def quiet_batch():
+    """8 rows whose last 4 (rank 1's) are 60 dB below the first 4: under
+    db_batch_global their dB sits against rank 0's reference, mostly at the
+    −80 floor, and each rank's own reference would move every value."""
+    batch = make_batch(8, seed=5)
+    batch["audio"][4:] = (batch["audio"][4:] // 1000).astype(np.int16)
+    return batch
+
+
+GLOBAL_BATCHES = {"batch": lambda: make_batch(BATCH, seed=7), "batch8": lambda: make_batch(8, seed=7),
+                  "batch8_quiet": quiet_batch}
 
 
 def _free_port() -> int:
@@ -74,7 +90,8 @@ def job(tmp_path_factory):
     """The 2-rank job's work dir, after both ranks exited 0."""
     work = tmp_path_factory.mktemp("dp")
     jax_ckpt.save_state(str(work / "state0.ckpt"), _jax_state0())
-    np.savez(work / "batch.npz", **make_batch(BATCH, seed=7))
+    for name, make in GLOBAL_BATCHES.items():
+        np.savez(work / f"{name}.npz", **make())
     make_corpus(str(work / "train_h5"), 3, 16, 0)
     make_corpus(str(work / "valid_h5"), 2, 8, 1)
     port = _free_port()
@@ -111,14 +128,14 @@ def ranks_result(job, name):
     return out
 
 
-def jax_mesh_step(bn_mode):
+def jax_mesh_step(bn_mode, batch="batch", accum_steps=1, db_batch_global=False):
     """JAX's step on a 2-device ('data', 'model') mesh, the batch sharded
     over 'data' → (trees, metrics, grads) like ``port_step``."""
     mesh = create_mesh(jax.devices()[:2])
-    model = jax_build_model(MODEL).module()
+    model = jax_build_model(MODEL).module(db_batch_global=db_batch_global)
     state = jax_replicate(_jax_state0(), mesh)
-    step = jax_make_train_step(model, donate=False, bn_mode=bn_mode, mesh=mesh)
-    new, metrics = step(state, jax_shard_batch(make_batch(BATCH, seed=7), mesh))
+    step = jax_make_train_step(model, donate=False, accum_steps=accum_steps, bn_mode=bn_mode, mesh=mesh)
+    new, metrics = step(state, jax_shard_batch(GLOBAL_BATCHES[batch](), mesh))
     host = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     trees = {"params": host(new.params), "batch_stats": host(new.batch_stats),
              "mu": host(new.opt_state[0].mu)}
@@ -128,7 +145,9 @@ def jax_mesh_step(bn_mode):
 
 @pytest.fixture(scope="module")
 def jax_steps():
-    return {mode: jax_mesh_step(mode) for mode in ("sync", "per_replica")}
+    return {"sync": jax_mesh_step("sync"), "per_replica": jax_mesh_step("per_replica"),
+            "sync8": jax_mesh_step("sync", "batch8"), "accum2": jax_mesh_step("sync", "batch8", accum_steps=2),
+            "db_global": jax_mesh_step("sync", "batch8_quiet", db_batch_global=True)}
 
 
 def _gates(ours, theirs):
@@ -239,6 +258,40 @@ def test_sync_step_equals_one_process_and_jax_mesh(job, jax_steps):
     print("2 ranks vs JAX's 2-device mesh, worst:", _gates(r0, jax_steps["sync"]))
 
 
+def test_sync_step_at_8_rows_equals_one_process_and_jax_mesh(job, jax_steps):
+    """The 2-rank sync step at a global batch of 8 (4 rows a rank) against
+    the one-process step and JAX's mesh step: every gate, the BN-fed conv
+    biases' 1e-3 noise gate included, which the one-process step and JAX's
+    both pass too (check_step holds both sides to it)."""
+    r0, r1 = ranks_result(job, "sync8")
+    assert_trees_equal(r0[0], r1[0])
+    print("8 rows, 2 ranks vs one process, worst:", _gates(r0, port_step(MODEL, make_batch(8, seed=7))))
+    print("8 rows, 2 ranks vs JAX's 2-device mesh, worst:", _gates(r0, jax_steps["sync8"]))
+
+
+def test_accumulated_step_equals_jax_mesh(job, jax_steps):
+    """accum_steps=2 on 2 ranks: microbatch i is JAX's rows [4i, 4i + 4) of
+    the global batch, two a rank, so the step equals JAX's accumulated step
+    on the 2-device mesh and the one-process accumulated step, at every
+    gate (BN statistics of the second microbatch's rows included)."""
+    r0, r1 = ranks_result(job, "accum2")
+    assert_trees_equal(r0[0], r1[0])
+    print("accum 2, 2 ranks vs JAX's mesh, worst:", _gates(r0, jax_steps["accum2"]))
+    single = port_step(MODEL, make_batch(8, seed=7), accum_steps=2)
+    print("accum 2, 2 ranks vs one process, worst:", _gates(r0, single))
+
+
+def test_db_batch_global_step_equals_one_process_and_jax_mesh(job, jax_steps):
+    """A db_batch_global model on 2 ranks (rank 1's rows 60 dB quieter): the
+    dB reference is the max over both ranks' rows, so the step equals the
+    one-process step on the global batch and JAX's mesh step."""
+    r0, r1 = ranks_result(job, "db_global")
+    assert_trees_equal(r0[0], r1[0])
+    single = port_step(MODEL, quiet_batch(), db_batch_global=True)
+    print("db_batch_global, 2 ranks vs one process, worst:", _gates(r0, single))
+    print("db_batch_global, 2 ranks vs JAX's mesh, worst:", _gates(r0, jax_steps["db_global"]))
+
+
 def test_per_replica_equals_jax(job, jax_steps):
     """per_replica on 2 ranks equals JAX's bn_mode='per_replica' on the
     2-device mesh, and differs from sync (local statistics)."""
@@ -280,10 +333,16 @@ def test_planted_faults_fail_a_gate(job, jax_steps, fault):
     """Each planted fault fails a gate against the reference it breaks: the
     detached reduction and the averaged variances against JAX's sync step
     (the one-process step too), DDP's broadcast_buffers against JAX's
-    per_replica step."""
+    per_replica step, each rank's own dB reference against JAX's and the
+    one-process db_batch_global step."""
     ours = ranks_result(job, fault)[0]
-    refs = {"sync": jax_steps["sync"], "one process": port_step(MODEL, make_batch(BATCH, seed=7))} \
-        if fault != "fault_broadcast_buffers" else {"per_replica": jax_steps["per_replica"]}
+    if fault == "fault_broadcast_buffers":
+        refs = {"per_replica": jax_steps["per_replica"]}
+    elif fault == "fault_db_local":
+        refs = {"db_global": jax_steps["db_global"],
+                "one process": port_step(MODEL, quiet_batch(), db_batch_global=True)}
+    else:
+        refs = {"sync": jax_steps["sync"], "one process": port_step(MODEL, make_batch(BATCH, seed=7))}
     for what, ref in refs.items():
         with pytest.raises(AssertionError) as caught:
             _gates(ours, ref)

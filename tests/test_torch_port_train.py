@@ -73,6 +73,8 @@ from l3embedding_torch.models import avc, towers
 from l3embedding_torch.models.registry import build_model
 from l3embedding_torch.training.state import create_train_state
 from l3embedding_torch.training.steps import (
+    _ce_acc,
+    _inputs,
     l2_penalty,
     make_eval_step,
     make_train_step,
@@ -166,18 +168,18 @@ def jax_step(model_type, batch, dtype=jnp.float32, accum_steps=1):
     return trees, {k: float(x) for k, x in metrics.items()}, grads
 
 
-def port_state(model_type, dtype=torch.float32):
+def port_state(model_type, dtype=torch.float32, db_batch_global=False):
     state = create_train_state(
-        build_model(model_type), torch.Generator().manual_seed(0), LR, dtype, "cpu"
+        build_model(model_type), torch.Generator().manual_seed(0), LR, dtype, "cpu", db_batch_global
     )
     state.model.load_state_dict(avc_from_jax_variables(variables(model_type), model_type))
     return state
 
 
-def port_step(model_type, batch, dtype=torch.float32, accum_steps=1, bn_mode="sync"):
+def port_step(model_type, batch, dtype=torch.float32, accum_steps=1, bn_mode="sync", db_batch_global=False):
     """→ (new flax-layout trees, metrics, gradients by flax path) of the
     port's step."""
-    state = port_state(model_type, dtype)
+    state = port_state(model_type, dtype, db_batch_global)
     state, metrics = make_train_step(accum_steps=accum_steps, bn_mode=bn_mode)(
         state, {k: torch.from_numpy(x) for k, x in batch.items()}
     )
@@ -512,6 +514,45 @@ def test_bn_fed_biases(model_type):
         assert params[conv].shape == params[bn].shape
         module = model.get_submodule(bn.rsplit(".", 1)[0])
         assert isinstance(module, torch.nn.BatchNorm2d), bn
+
+
+def float64_step_grads(model_type, batch):
+    """The port's step on a float64 copy of the same state (BN, convs and
+    loss in float64 from the inputs on) → gradients by flax path."""
+    state = port_state(model_type)
+    model = state.model.double()
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    video, audio, labels = (t.double() for t in _inputs(
+        {k: torch.from_numpy(x) for k, x in batch.items()}, torch.device("cpu")))
+    ce, _ = _ce_acc(model(video, audio, train=True), labels)
+    (ce + l2_penalty(model)).backward()
+    params = dict(model.named_parameters())
+    grads = {}
+    for name, coll, path, layout in avc_leaves(model_type):
+        if coll == "params":
+            g = params[name].grad.detach().numpy()
+            grads[path] = g.transpose(2, 3, 1, 0) if layout == "conv" else g.T if layout == "dense" else g
+    return grads
+
+
+@pytest.mark.parametrize("rows", [4, 8])
+def test_bn_fed_conv_bias_gradients_at_the_rounding_floor(rows):
+    """tiny_L3's conv biases that feed a train-mode BN: in a float64 step
+    their gradient is zero but for rounding (≤ 1e-12 of the fed BN's bias
+    gradient; 4e-14 measured), and the f32 step keeps it ≤ 1e-4 of it
+    (3.7e-5 at most; summed exactly, the f32 per-element gradients give
+    1.6e-5-3.3e-5). The conv backward's own float32 bias sum put the vision
+    Conv_0 bias at 1.7e-2 at 8 rows (JAX's step: 1.3e-4), above
+    check_step's 1e-3 gate; towers._conv adds such a bias on its own."""
+    batch = make_batch(rows, seed=7)
+    f32, f64 = port_step("tiny_L3", batch)[2], float64_step_grads("tiny_L3", batch)
+    for path, bn_bias in bn_fed_paths("tiny_L3").items():
+        r32 = np.abs(f32[path]).max() / np.abs(f32[bn_bias]).max()
+        r64 = np.abs(f64[path]).max() / np.abs(f64[bn_bias]).max()
+        print("/".join(path), f"f32 {r32:.2e}, float64 {r64:.2e}")
+        assert r64 <= 1e-12 and r32 <= 1e-4, (path, r32, r64)
 
 
 def test_train_step_accum_tiny():

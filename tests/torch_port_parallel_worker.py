@@ -5,14 +5,18 @@
         python tests/torch_port_parallel_worker.py WORK_DIR
 
 WORK_DIR holds what the test wrote: ``state0.ckpt`` (the seeded step-0
-state), ``batch.npz`` (the global batch) and ``train_h5`` / ``valid_h5``.
-Each rank writes its results there: one step of each scenario (sync,
-per_replica, the eval step, and three planted faults) as a ``.ckpt`` of the
-new state and an ``.npz`` of gradients and metrics, then the ``train()``
-runs (uninterrupted; preempted on rank 1 alone; resumed) with a JSON
-record of what each rank saw and wrote. Imports no JAX.
+state), the global batches (``batch.npz`` of 4 rows, ``batch8.npz`` of 8,
+``batch8_quiet.npz`` of 8 whose last 4 rows are quiet) and ``train_h5`` /
+``valid_h5``. Each rank writes its results there: one step of each scenario
+(``SCENARIOS``: sync and per_replica at 4 rows, sync at 8, accumulation over
+2 microbatches, a db_batch_global model, the eval step, and four planted
+faults) as a ``.ckpt`` of the new state and an ``.npz`` of gradients and
+metrics, then the ``train()`` runs (uninterrupted; preempted on rank 1
+alone; resumed) with a JSON record of what each rank saw and wrote. Imports
+no JAX.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -77,13 +81,29 @@ FAULTS = {
     "fault_detached": (towers, "_all_reduce_sum", _detached_sum),
     "fault_var_avg": (towers, "_batch_moments", _averaged_variances),
     "fault_broadcast_buffers": (steps, "_average_running_stats", _broadcast_buffers),
+    # Each rank's own rows' dB reference (the refusal's reason before).
+    "fault_db_local": (steps, "batch_global_db", lambda group: contextlib.nullcontext()),
+}
+
+# name → (bn_mode, global batch, accum_steps, db_batch_global)
+SCENARIOS = {
+    "sync": ("sync", "batch", 1, False),
+    "per_replica": ("per_replica", "batch", 1, False),
+    "sync8": ("sync", "batch8", 1, False),
+    "accum2": ("sync", "batch8", 2, False),
+    "db_global": ("sync", "batch8_quiet", 1, True),
+    "fault_detached": ("sync", "batch", 1, False),
+    "fault_var_avg": ("sync", "batch", 1, False),
+    "fault_broadcast_buffers": ("per_replica", "batch", 1, False),
+    "fault_db_local": ("sync", "batch8_quiet", 1, True),
 }
 
 
 # ---------------------------------------------------------------- steps
 
-def fresh_state(work):
-    state = create_train_state(build_model(MODEL), torch.Generator().manual_seed(0), LR, device="cpu")
+def fresh_state(work, db_batch_global=False):
+    state = create_train_state(build_model(MODEL), torch.Generator().manual_seed(0), LR, device="cpu",
+                               db_batch_global=db_batch_global)
     checkpoints.load_state(os.path.join(work, "state0.ckpt"), state)
     if rank() == 1:
         # Rank 1 drifts: replicate must bring back rank 0's state exactly.
@@ -99,18 +119,20 @@ def fresh_state(work):
 
 def run_steps(work, out):
     group = data_group()
-    with np.load(os.path.join(work, "batch.npz")) as z:
-        batch = shard_batch({k: torch.from_numpy(z[k]) for k in z.files}, group)
-    scenarios = {"sync": "sync", "per_replica": "per_replica", "fault_detached": "sync",
-                 "fault_var_avg": "sync", "fault_broadcast_buffers": "per_replica"}
-    for name, bn_mode in scenarios.items():
-        state = fresh_state(work)
+    batches = {}
+    for name in ("batch", "batch8", "batch8_quiet"):
+        with np.load(os.path.join(work, f"{name}.npz")) as z:
+            batches[name] = shard_batch({k: torch.from_numpy(z[k]) for k in z.files}, group)
+    batch = batches["batch"]
+    for name, (bn_mode, which, accum_steps, db_batch_global) in SCENARIOS.items():
+        state = fresh_state(work, db_batch_global)
         patch = FAULTS.get(name)
         real = getattr(patch[0], patch[1]) if patch else None
         if patch:
             setattr(patch[0], patch[1], patch[2])
         try:
-            state, metrics = steps.make_train_step(bn_mode=bn_mode, group=group)(state, batch)
+            step = steps.make_train_step(accum_steps=accum_steps, bn_mode=bn_mode, group=group)
+            state, metrics = step(state, batches[which])
         finally:
             if patch:
                 setattr(patch[0], patch[1], real)
