@@ -35,9 +35,16 @@ torch.distributed.run (``l3embedding_torch.tools.dp_check``), held against
 one process on the whole batch (f32, bf16, per_replica), with the epoch
 cycle, the chief's writes and a preemption raised on rank 1 alone; and the
 VGGish baseline (phase_vggish): the card against a CPU copy, examples/s and
-the 05 CLI with --features vggish on the 40 WAVs.
+the 05 CLI with --features vggish on the 40 WAVs. Last, the downstream
+classifier (phase_classify, stage 06's MLP): classifier/train.py::train_mlp
+on seeded features at UrbanSound8K's scale (8,732 clips × 31 rows × 6144,
+3 epochs at batch 64: s/epoch, rows/s, peak memory, the idle share of an
+epoch, the file-level test accuracy), the MLP on the card against the CPU
+from one start, and phase_corpus's f32 features through train_mlp (05 →
+06); train() and the 06 CLI too where sklearn is installed.
 Fixtures are made at run time in a temporary directory (stdlib WAV,
-``.npy`` image, ``.npz`` video, h5 corpus); nothing is downloaded.
+``.npy`` image, ``.npz`` video, h5 corpus) or in memory (the classifier's
+features); nothing is downloaded.
 
     python3 chip_smoke.py
 
@@ -1527,10 +1534,12 @@ def phase_corpus(dev):
     costs of the first). Every npz's X of the first round against the
     in-process extractor of its kind (f32 0.99999, bf16 0.999), the int8 run
     identical to the artifact run; files/s and windows/s of each run (host
-    clock around the whole CLI)."""
+    clock around the whole CLI). Returns the f32 run's (train, test) split,
+    get_split's folds 2 and 1, for phase_classify."""
     import tempfile
 
     from l3embedding_torch.cli import generate_embedding_samples as cli
+    from l3embedding_torch.data.usc.folds import get_split
     from l3embedding_torch.embed.extract import EmbeddingExtractor
 
     tmp = tempfile.TemporaryDirectory()
@@ -1589,7 +1598,11 @@ def phase_corpus(dev):
             f"ms (host clock, mean of 10)")
     if worst < 0.999 or not same:
         raise SystemExit("corpus 05: bf16 misses the gate or the artifact run differs from the int8 run")
+    # The f32 features go on to 06 (phase_classify): fold 2 trains, fold 1 tests.
+    top = os.path.join(tmp.name, "f32_1", "features", "dcase2013", "l3", "original", "music", "cnn_L3_melspec2")
+    train, _, test = get_split(top, 0, "dcase2013", valid=False)
     tmp.cleanup()
+    return train, test
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1880,6 +1893,226 @@ def phase_vggish(dev):
         tmp.cleanup()
 
 
+# UrbanSound8K at hop 0.1 s: 8,732 clips of up to 4 s in 10 folds, 31
+# 'original' rows (6144-d) a clip, 10 classes (phase_classify).
+CLS_FOLDS, CLS_FILES, CLS_FRAMES, CLS_DIM, CLS_CLASSES = 10, 873, 31, 6144, 10
+CLS_BATCH = 64  # 06's default train batch
+CLS_CARD_CPU_ROWS = 4096
+
+
+def us8k_split(dev, seed: int) -> tuple[dict, dict, dict]:
+    """Seeded class-structured 'original' features at UrbanSound8K's scale,
+    as get_split and the framewise preprocessing leave them: fold 1 the
+    test fold (labels and file_idxs per file), fold 10 the valid fold and
+    folds 2-9 the training set (labels per row). A file's rows are its
+    class mean (0.03 · N(0, 1) per dimension) plus N(0, 1) noise; made on the
+    card fold by fold, copied into host arrays (6.6 GB in all)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    means = 0.03 * torch.randn((CLS_CLASSES, CLS_DIM), generator=g, device=dev)
+    rows = CLS_FILES * CLS_FRAMES
+    y = np.arange(CLS_FILES) % CLS_CLASSES
+    y_dev = torch.from_numpy(y).to(dev)
+    spans = np.stack([np.arange(CLS_FILES) * CLS_FRAMES, np.arange(1, CLS_FILES + 1) * CLS_FRAMES], 1)
+
+    def fold_into(dst: np.ndarray) -> None:
+        x = torch.randn((CLS_FILES, CLS_FRAMES, CLS_DIM), generator=g, device=dev)
+        x += means[y_dev][:, None, :]
+        torch.from_numpy(dst).copy_(x.view(rows, CLS_DIM))
+
+    test = {"features": np.empty((rows, CLS_DIM), np.float32), "labels": y, "file_idxs": spans}
+    valid = {"features": np.empty((rows, CLS_DIM), np.float32), "labels": np.repeat(y, CLS_FRAMES),
+             "file_idxs": spans}
+    n_train = CLS_FOLDS - 2
+    train = {"features": np.empty((n_train * rows, CLS_DIM), np.float32),
+             "labels": np.tile(np.repeat(y, CLS_FRAMES), n_train),
+             "file_idxs": np.concatenate([spans + i * rows for i in range(n_train)])}
+    fold_into(test["features"])
+    for i in range(n_train):
+        fold_into(train["features"][i * rows:(i + 1) * rows])
+    fold_into(valid["features"])
+    return train, valid, test
+
+
+def epoch_device_share(prof) -> tuple[float, int, list]:
+    """(device busy ms, event count, top 5 (name, ms)) of the device events that start
+    after the first step's minibatch gather was issued (the first
+    ``aten::index_select`` on the host), that is of the epoch: the uploads of
+    the training set, the valid set and the model come before it."""
+    start = min(e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::index_select")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.time_range.start >= start]
+    busy_us, end, by_name = 0.0, float("-inf"), defaultdict(float)
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.time_range.end > end:
+            busy_us += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+        by_name[e.name] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
+    return busy_us / 1e3, len(events), [(name, us / 1e3) for name, us in top]
+
+
+def standardize(train: dict, test: dict) -> None:
+    """StandardScaler's arithmetic in numpy (fit on train; a zero variance
+    scales by 1), for machines without sklearn."""
+    mean = train["features"].mean(0)
+    std = train["features"].std(0)
+    std[std == 0] = 1.0
+    for data in (train, test):
+        data["features"] = ((data["features"] - mean) / std).astype(np.float32)
+
+
+def phase_classify(dev, corpus_split):
+    """The downstream classifier (06's MLP) on the card.
+    - US8K scale (us8k_split): classifier/train.py::train_mlp, 3 epochs at
+      batch 64, lr 1e-4: s/epoch, steps/s, training rows/s, peak memory, the
+      file-level test accuracy (>= 0.5); the device's idle share over one
+      epoch at 1/10 of the rows (torch.profiler).
+    - Card against CPU: train_mlp_torch from the same initial parameters, 2
+      epochs on 4096 rows: per-layer cosine >= 0.9999, the epochs' losses
+      within CLS_LOSS_REL, predict_proba rows at cosine >= 0.9999.
+    - 05 to 06: phase_corpus's f32 dcase2013 features, standardised, fold 2
+      trains (06's defaults, 150 epochs, patience 20), fold 1 tests: the
+      file-level accuracy (>= 0.5; 10 classes).
+    - train() and the 06 CLI where sklearn is installed (a small feature
+      directory), else a line that says they were left out."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from l3embedding_torch.classifier import mlp
+    from l3embedding_torch.classifier import train as cls_train
+    from l3embedding_torch.compat.to_jax import mlp_to_jax
+    from l3embedding_torch.data.usc.features import expand_framewise_labels
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        train, valid, test = us8k_split(dev, seed=61)
+        log(f"classify: US8K-scale features made in {time.perf_counter() - t0:.1f} s: train "
+            f"{train['features'].shape}, valid {valid['features'].shape}, test {test['features'].shape} "
+            f"({len(test['labels'])} files), f32")
+        histories = []
+        real = cls_train.train_mlp_torch
+
+        def recording(*args, **kwargs):
+            model, hist = real(*args, **kwargs)
+            histories.append(hist)
+            return model, hist
+
+        cls_train.train_mlp_torch = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            _, _, va_m, te_m = cls_train.train_mlp(train, valid, test, tmp.name, batch_size=CLS_BATCH, num_epochs=3,
+                                                   learning_rate=1e-4, num_classes=CLS_CLASSES,
+                                                   random_state=20171021, device=dev)
+        finally:
+            cls_train.train_mlp_torch = real
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (hist,) = histories
+        steps = len(train["labels"]) // CLS_BATCH
+        for e, sec in enumerate(hist["epoch_seconds"]):
+            log(f"classify mlp epoch {e}: {sec:.3f} s, {steps} steps ({steps / sec:.1f} steps/s, "
+                f"{steps * CLS_BATCH / sec:.0f} training rows/s), loss {hist['train_loss'][e]:.4f} acc "
+                f"{hist['train_acc'][e]:.4f}, val_loss {hist['valid_loss'][e]:.4f} val_acc {hist['valid_acc'][e]:.4f}")
+        log(f"classify mlp: train_mlp {wall:.2f} s in all (uploads, 3 epochs, predict_proba over train, valid "
+            f"and test, host clock); peak memory {peak:.2f} GiB; file-level test accuracy {te_m['accuracy']:.4f}, "
+            f"frame-level valid accuracy {va_m['accuracy']:.4f} (10 classes)")
+        if not (te_m["accuracy"] >= 0.5 and np.isfinite(hist["train_loss"]).all()):
+            raise SystemExit("classify: the MLP did not learn the US8K-scale task")
+
+        n = len(train["labels"]) // 10
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            _, h = mlp.train_mlp_torch(train["features"][:n], train["labels"][:n], valid["features"][:n // 8],
+                                       valid["labels"][:n // 8], num_epochs=1, batch_size=CLS_BATCH,
+                                       random_state=5, device=dev)
+        epoch_ms = h["epoch_seconds"][0] * 1e3
+        busy, count, top = epoch_device_share(prof)
+        log(f"profile classify mlp: one epoch of {n // CLS_BATCH} steps at 1/10 of the rows: wall {epoch_ms:.1f} ms "
+            f"(host clock; {epoch_ms / (n // CLS_BATCH):.3f} ms a step), device busy {busy:.1f} ms (union of {count} "
+            f"device events), idle share {1 - busy / epoch_ms:.3f}")
+        for name, ms in top:
+            log(f"  {ms:8.3f} ms  {name[:90]}")
+
+        X, y = train["features"][:CLS_CARD_CPU_ROWS], train["labels"][:CLS_CARD_CPU_ROWS]
+        Xv, yv = valid["features"][:1024], valid["labels"][:1024]
+        runs = {}
+        for device in (dev, "cpu"):
+            model, h = mlp.train_mlp_torch(X, y, Xv, yv, num_epochs=2, batch_size=CLS_BATCH, random_state=7,
+                                           device=device)
+            runs[device] = (mlp_to_jax(model), h, mlp.predict_proba(model, test["features"][:4096]))
+        cos = min(row_cosines(torch.from_numpy(a[k]).reshape(1, -1), torch.from_numpy(b[k]).reshape(1, -1)).item()
+                  for a, b in zip(runs[dev][0], runs["cpu"][0]) for k in ("w", "b"))
+        rel = max(abs(a / b - 1) for key in ("train_loss", "valid_loss")
+                  for a, b in zip(runs[dev][1][key], runs["cpu"][1][key]))
+        prob = row_cosines(torch.from_numpy(runs[dev][2]), torch.from_numpy(runs["cpu"][2])).min().item()
+        log(f"classify mlp card vs CPU (2 epochs, {CLS_CARD_CPU_ROWS} rows, same initial parameters): min layer "
+            f"cosine {cos:.8f} (>= 0.9999), epoch losses within {rel:.2e} relative (<= {CLS_LOSS_REL}), "
+            f"predict_proba rows min cosine {prob:.8f} (>= 0.9999)")
+        if cos < 0.9999 or rel > CLS_LOSS_REL or prob < 0.9999:
+            raise SystemExit("classify: the MLP on the card disagrees with the CPU")
+
+        ctrain, ctest = corpus_split
+        expand_framewise_labels(ctrain)
+        standardize(ctrain, ctest)
+        chain_dir = os.path.join(tmp.name, "chain")
+        os.makedirs(chain_dir)
+        t0 = time.perf_counter()
+        _, _, _, chain_m = cls_train.train_mlp(ctrain, None, ctest, chain_dir, num_epochs=150, patience=20,
+                                               num_classes=10, random_state=20171021, device=dev)
+        log(f"classify 05 -> 06 (dcase2013 tone corpus, cnn_L3_melspec2 f32 'original' rows from phase_corpus): "
+            f"train fold 2 {ctrain['features'].shape}, test fold 1 {len(ctest['labels'])} files; train_mlp "
+            f"{time.perf_counter() - t0:.2f} s; file-level test accuracy {chain_m['accuracy']:.4f}")
+        if not chain_m["accuracy"] >= 0.5:
+            raise SystemExit("classify 05 -> 06: the MLP did not learn the tone classes")
+
+        try:
+            import sklearn  # noqa: F401
+        except ImportError:
+            log("classify: sklearn is not installed here: train() and the 06 CLI (their scalers need it) "
+                "run in the CPU suite only")
+        else:
+            classify_with_sklearn(dev, tmp.name)
+    finally:
+        tmp.cleanup()
+
+
+# The card's and the CPU's epoch losses from the same start: 9.7e-8
+# relative on an NVIDIA H100 80GB HBM3, 700 W (PERF.md §6, PR 12).
+CLS_LOSS_REL = 1e-5
+
+
+def classify_with_sklearn(dev, root: str) -> None:
+    """train() and the 06 CLI (mlp on the card) on a small us8k feature
+    directory; results.pkl holds train, valid and test."""
+    import pickle
+
+    from l3embedding_torch.classifier import train as cls_train
+    from l3embedding_torch.cli import train_classifier
+
+    feats = os.path.join(root, "features", "us8k", "l3", "original", "music", "cnn_L3_melspec2")
+    rng = np.random.RandomState(62)
+    for fold in range(1, 11):
+        os.makedirs(os.path.join(feats, f"fold{fold}"))
+        for i in range(10):
+            x = (rng.randn(8, 64) + 3.0 * i).astype(np.float32)
+            np.savez_compressed(os.path.join(feats, f"fold{fold}", f"file{fold}-{i}-0-{i}.npz"), X=x, y=i)
+    model_dir, results = cls_train.train(feats, os.path.join(root, "cls"), 1, model_type="mlp", num_epochs=5,
+                                         device=dev)
+    rc = train_classifier.main(["-mt", "mlp", "-e", "5", "--device", dev, feats, os.path.join(root, "cli"), "2"])
+    runs = [os.path.join(d, "results.pkl") for d, _, files in os.walk(os.path.join(root, "cli"))
+            if "results.pkl" in files]
+    with open(runs[0], "rb") as f:
+        keys = sorted(pickle.load(f))
+    log(f"classify train() mlp: test accuracy {results['test']['accuracy']:.4f}; 06 CLI rc {rc}, results.pkl keys "
+        f"{keys}")
+    if rc != 0 or keys != ["test", "train", "valid"] or sorted(results) != keys:
+        raise SystemExit("classify: train() or the 06 CLI failed")
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
     from l3embedding_torch.ops import block1_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
@@ -1942,9 +2175,10 @@ def main() -> int:
     phase_profile(dev)
     phase_train(dev)
     phase_int8(dev)
-    phase_corpus(dev)
+    corpus_split = phase_corpus(dev)
     phase_ddp(dev)
     phase_vggish(dev)
+    phase_classify(dev, corpus_split)
 
     kernels = []
     for name, (src, replaces, modes) in KERNELS.items():

@@ -32,12 +32,11 @@ import subprocess
 import numpy as np
 import torch
 
-from .compat.from_jax import vision_from_jax_variables
 from .data.audio_io import load_audio, pcm2float, read_via_ffmpeg, resample
 from .data.video_io import _ffprobe_path, probe_video, read_video, scaled_dims
-from .embed.extract import INIT_SEED, EmbeddingExtractor, _bucket, frame_uniform
+from .embed.extract import EmbeddingExtractor, _bucket, frame_uniform
 from .models.embedding import vision_embedding_fn
-from .training.checkpoints import load_variables
+from .models.loading import load_model
 
 TARGET_SR = 48000
 
@@ -235,8 +234,10 @@ def preprocess_frames(frames: np.ndarray) -> np.ndarray:
 class ImageEmbeddingModel:
     """Resident vision-embedding extractor (8192-d, reference
     vision_model.py:198-218), f32, with the audio path's power-of-two
-    batch buckets. weights_path=None gives a seeded random model (He-normal
-    kernels from a ``torch.Generator`` seeded with INIT_SEED)."""
+    batch buckets. The weights come through ``models.loading.load_model``:
+    a ``.ckpt``, a reference Keras ``.h5``, or, for weights_path=None, a
+    seeded random model (He-normal kernels from a ``torch.Generator`` seeded
+    with INIT_SEED)."""
 
     def __init__(self, weights_path: str | None = None,
                  input_repr: str = "mel256",
@@ -245,12 +246,8 @@ class ImageEmbeddingModel:
         self.model_type = _resolve_model_type(input_repr, model_type)
         self.device = torch.device(device)
         model = vision_embedding_fn(self.model_type)
-        if weights_path is None:
-            model.tower.reset_parameters(torch.Generator().manual_seed(INIT_SEED))
-        else:
-            model.tower.load_state_dict(
-                vision_from_jax_variables(load_variables(weights_path), self.model_type)
-            )
+        avc, _ = load_model(weights_path, self.model_type, device="cpu")
+        model.tower.load_state_dict(avc.vision_model.state_dict())
         self.model = model.eval().to(self.device)
 
     def embed_frames(self, frames: np.ndarray) -> np.ndarray:

@@ -12,6 +12,8 @@ tower's own subtree), and returns a state dict:
   * ``block1_conv_from_jax(w_hwio, scale, shift)`` → the block-1 probe
     kernel's operands (not a state dict).
   * ``vggish_from_jax(params)`` → the VGGish module's (flax VGGish params).
+  * ``mlp_from_jax(params)`` → the downstream classifier's MLP (not a
+    state dict): JAX's ``[{"w": (in, out), "b": (out,)}, ...]`` list.
 
 Naming follows flax's auto-names. In a full tower ``ConvBNRelu_{i}/{Conv_0,
 BatchNorm_0}`` are the blocks and ``{audio,vision}_embedding_layer`` the
@@ -211,3 +213,19 @@ def vggish_from_jax(params_np: dict) -> dict:
             sd[f"{group}.{name}.weight"] = to_torch_layout(params_np[name]["kernel"], layout)
             sd[f"{group}.{name}.bias"] = to_torch_layout(params_np[name]["bias"], None)
     return sd
+
+
+def mlp_from_jax(params_np) -> torch.nn.Module:
+    """The JAX package's downstream MLP parameters, ``[{"w": (in, out),
+    "b": (out,)}, ...]`` (numpy or jax arrays; the layout of its
+    ``model.pkl``), → a ``classifier.mlp.MLP`` on the CPU holding them
+    (dense kernels (in, out) → (out, in))."""
+    from ..classifier.mlp import MLP
+
+    ws = [np.asarray(layer["w"], np.float32) for layer in params_np]
+    model = MLP(ws[0].shape[0], ws[-1].shape[1], tuple(w.shape[1] for w in ws[:-1]))
+    model.load_state_dict({
+        **{f"layers.{i}.weight": to_torch_layout(w, "dense") for i, w in enumerate(ws)},
+        **{f"layers.{i}.bias": to_torch_layout(layer["b"], None) for i, layer in enumerate(params_np)},
+    })
+    return model

@@ -7,7 +7,8 @@ the layout that ``flax.serialization.to_state_dict`` gives the JAX
 package's ``AVCTrainState``: conv kernels OIHW → HWIO, dense kernels
 (out, in) → (in, out), BN weight/bias/running_mean/running_var →
 scale/bias/mean/var, and torch Adam's ``exp_avg``/``exp_avg_sq``/``step``
-→ optax.adam's ``mu``/``nu``/``count`` (int32).
+→ optax.adam's ``mu``/``nu``/``count`` (int32). ``mlp_to_jax`` gives the
+downstream MLP's parameters in the JAX package's list layout.
 """
 
 from __future__ import annotations
@@ -59,3 +60,10 @@ def adam_to_jax(model: torch.nn.Module, model_type: str,
     if len(steps) != 1:
         raise ValueError(f"Adam state: parameters disagree on the step count: {sorted(steps)}")
     return {"0": {"count": np.asarray(steps.pop(), np.int32), "mu": mu, "nu": nu}, "1": {}}
+
+
+def mlp_to_jax(model: torch.nn.Module) -> list:
+    """A ``classifier.mlp.MLP`` → the JAX package's MLP parameters,
+    ``[{"w": (in, out), "b": (out,)}, ...]`` as numpy (its ``model.pkl``
+    layout)."""
+    return [{"w": _host(layer.weight, "dense"), "b": _host(layer.bias, None)} for layer in model.layers]

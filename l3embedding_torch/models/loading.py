@@ -4,7 +4,9 @@ reference l3embedding/model.py:85-181).
 
 ``src_num_gpus`` / ``tgt_num_gpus`` / ``return_io`` are accepted for
 signature compatibility and ignored. Weights are the JAX package's
-``.ckpt`` files; reference Keras ``.h5`` files are not read yet.
+``.ckpt`` files or reference Keras ``.h5`` weight files (read through
+``compat/keras_import.py``, which unwraps multi-GPU-wrapped files; h5py
+is needed only for them).
 """
 
 from __future__ import annotations
@@ -21,15 +23,15 @@ from .registry import build_model
 def load_model(weights_path, model_type, src_num_gpus=0, tgt_num_gpus=None,
                return_io=False, *, device: str | torch.device = "cuda"):
     """→ (model, state_dict): the f32 AVCModel in eval mode on `device`,
-    with the weights of a ``.ckpt`` (the full AVC tree), or He-normal ones
-    from a generator seeded with INIT_SEED when weights_path is empty."""
-    if weights_path and str(weights_path).endswith(".h5"):
-        raise NotImplementedError(
-            "reading reference Keras .h5 weights is not ported yet "
-            "(ROADMAP.md Queue 1 item 8); convert to .ckpt with the JAX package"
-        )
+    with the weights of a ``.ckpt`` (the full AVC tree) or of a reference
+    Keras ``.h5``, or He-normal ones from a generator seeded with
+    INIT_SEED when weights_path is empty."""
     model = build_model(model_type).module()
-    if weights_path:
+    if weights_path and str(weights_path).endswith(".h5"):
+        from ..compat.keras_import import import_avc_weights
+
+        model.load_state_dict(avc_from_jax_variables(import_avc_weights(weights_path, model_type), model_type))
+    elif weights_path:
         model.load_state_dict(avc_from_jax_variables(load_variables(weights_path), model_type))
     else:
         model.reset_parameters(torch.Generator().manual_seed(INIT_SEED))

@@ -139,9 +139,16 @@ def load_state(path: str, state):
     return state
 
 
+def save_tree(path: str, tree: dict) -> None:
+    """Atomically write nested dicts of numpy arrays as a ``.ckpt`` (the
+    JAX package's ``save_variables(path, params, batch_stats)`` for
+    ``{"params": params, "batch_stats": batch_stats}``)."""
+    _write_atomic(path, to_bytes(tree))
+
+
 def save_variables(path: str, model: torch.nn.Module, model_type: str) -> None:
     """Weights-only snapshot {params, batch_stats} (for extraction)."""
-    _write_atomic(path, to_bytes(avc_to_jax_variables(model, model_type)))
+    save_tree(path, avc_to_jax_variables(model, model_type))
 
 
 class AsyncCheckpointWriter:

@@ -18,6 +18,27 @@ from typing import Any
 
 import numpy as np
 
+# Column schemas mirroring reference gsheets.py:11-73.
+EMBEDDING_FIELD_NAMES = [
+    "username", "model_dir", "model_type", "train_data_dir",
+    "validation_data_dir", "num_epochs", "train_epoch_size",
+    "validation_epoch_size", "train_batch_size", "validation_batch_size",
+    "random_state", "learning_rate", "git_commit",
+    "latest_epoch", "latest_train_loss", "latest_validation_loss",
+    "latest_train_acc", "latest_validation_acc",
+    "best_train_loss", "best_validation_loss",
+    "best_train_acc", "best_validation_acc",
+]
+
+CLASSIFIER_FIELD_NAMES = [
+    "username", "model_dir", "git_commit", "features_dir", "model_type",
+    "feature_mode", "train_num_streamers", "train_batch_size",
+    "random_state", "learning_rate", "weight_decay", "C", "tol",
+    "max_iterations", "test_acc", "test_avg_class_acc", "test_class_acc",
+    "valid_acc", "valid_avg_class_acc", "train_acc",
+]
+
+
 class ExperimentTracker:
     """Interface: upsert a row keyed by model_dir, update metric columns."""
 

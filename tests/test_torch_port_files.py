@@ -317,9 +317,17 @@ def test_load_embedding_matches_jax(ckpt, embedding_type):
     assert _min_cos(got, theirs) >= 0.99999
 
 
-def test_load_model_refuses_h5_and_unknown_embedding_types(ckpt):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        loading.load_model("weights.h5", TINY, device="cpu")
+def test_load_model_refuses_h5_and_unknown_embedding_types(ckpt, tmp_path):
+    """A Keras .h5 goes through the Keras importer, which refuses a file
+    whose layers the model type lacks (tiny_L3 has no Keras layout; the
+    .h5 cases are tests/test_torch_port_keras.py); an unknown embedding
+    type raises."""
+    from l3embedding_tpu.compat.keras_synth import synthesize_keras_h5
+
+    h5 = str(tmp_path / "weights.h5")
+    synthesize_keras_h5(h5, np.random.RandomState(0))
+    with pytest.raises(ValueError, match="more Keras layers than targets in vision_model"):
+        loading.load_model(h5, TINY, device="cpu")
     with pytest.raises(ValueError, match="Invalid embedding type"):
         loading.load_embedding(ckpt(), TINY, "text", "short", device="cpu")
 
