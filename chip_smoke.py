@@ -23,7 +23,14 @@ checkpoint roles, the history files; through train() on an h5 corpus where
 h5py is installed, else on the same batches in memory), the trained
 checkpoint loaded into EmbeddingExtractor, one step against the same step
 on a CPU copy, 10 steps on one batch whose loss must fall, and the step
-time, pairs/s, peak memory and a profile at batch 64. Then int8 extraction
+time, pairs/s, peak memory and a profile at batch 64. Then the AVC sample
+factory (phase_sample): the port's 01 and 02 sampling on a seeded corpus of
+24 ten-second clips (the native host library built beside the kernels),
+every batch checked, samples/s in one process (native and numpy
+augmentation, none) and in 4, the native augmentation against numpy,
+cnn_L3_melspec2 trained in f32 and bf16 on the factory's stream (steps/s,
+data wait, idle share), and phase_train's state through directory
+checkpoints, bit for bit. Then int8 extraction
 (phase_int8) on cnn_L3_melspec2: calibration, the gate against the folded
 f32 tower, artifacts, embed_file, the CPU port, the HTTP server on
 --int8-artifact and windows/s beside bf16 and f32; and the 05 corpus CLI
@@ -43,8 +50,8 @@ epoch, the file-level test accuracy), the MLP on the card against the CPU
 from one start, and phase_corpus's f32 features through train_mlp (05 →
 06); train() and the 06 CLI too where sklearn is installed.
 Fixtures are made at run time in a temporary directory (stdlib WAV,
-``.npy`` image, ``.npz`` video, h5 corpus) or in memory (the classifier's
-features); nothing is downloaded.
+``.npy`` image, ``.npz`` video, h5 corpus, the factory's ``.npy`` clips) or
+in memory (the classifier's features); nothing is downloaded.
 
     python3 chip_smoke.py
 
@@ -1144,6 +1151,40 @@ def leaf_cosines(a: dict, b: dict, skip=()) -> dict:
             for n in a if n not in skip}
 
 
+def step_agreement(what: str, card: tuple, cpu: tuple, noise: dict, f32: bool) -> tuple[bool, float, dict, float]:
+    """One train step on the card against the same step on a CPU copy (each
+    ``one_train_step``'s result): logs the agreement and returns (the f32
+    gates passed, loss relative error, BN statistics cosines, batch
+    statistics' max relative error). An f32 step must keep TF32 off in its
+    backward, and the BN-fed conv biases' gradients must be ~0."""
+    m, grads, stats, seen = card
+    m_cpu, g_cpu, s_cpu, _ = cpu
+    if f32:
+        if seen != [False]:
+            raise SystemExit(f"{what}: TF32 on during the backward: {seen}")
+        for n, bn in noise.items():
+            for g in (grads, g_cpu):
+                if g[n].abs().max() > 1e-3 * g[bn].abs().max():
+                    raise SystemExit(f"{what}: {n} gradient is not ~0: {g[n].abs().max()}")
+    cos = leaf_cosines(grads, g_cpu, skip=noise)
+    worst = min(cos, key=cos.get)
+    err = max((grads[n] - g_cpu[n]).abs().max().item() for n in cos)
+    bn_cos = leaf_cosines(stats, s_cpu)
+    # The batch's own statistics, from new = 0.99·old + 0.01·batch (a fresh
+    # state: running mean 0, running variance 1).
+    batch_stat = lambda s, n: (s[n] - (0.99 if n.endswith("var") else 0.0)) / 0.01  # noqa: E731
+    stat_err = max(((batch_stat(stats, n) - batch_stat(s_cpu, n)).abs().max()
+                    / batch_stat(s_cpu, n).abs().max()).item() for n in stats)
+    loss_rel = abs(m["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    log(f"{what}: loss {m['loss']:.6f} / {m_cpu['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / "
+        f"{m_cpu['acc']:.3f}, gradient leaves min cosine {cos[worst]:.7f} ({worst}), max |d| {err:.3e}; "
+        f"BN statistics min cosine {min(bn_cos.values()):.7f}, batch statistics max relative "
+        f"error {stat_err:.2e}; TF32 in backward {seen}")
+    ok = (loss_rel <= 1e-4 and cos[worst] >= 0.9999 and stat_err <= 1e-3
+          and min(bn_cos.values()) >= 0.9999 and m["acc"] == m_cpu["acc"])
+    return ok, loss_rel, bn_cos, stat_err
+
+
 def phase_train(dev):
     """The AVC training path on cnn_L3_melspec2 at full width, f32 and bf16:
     the port's epoch cycle (train steps, eval steps, the four checkpoint
@@ -1155,7 +1196,8 @@ def phase_train(dev):
     BN statistics); 10 steps on one batch, whose loss must fall; then the
     step time, pairs/s and peak memory at batch 64 and a profile of 3
     steps. TF32 is set to torch's defaults for the phase: the f32 step must
-    keep it off itself, backward included."""
+    keep it off itself, backward included. Returns the f32 state of the
+    timed steps (full width, 15 steps) as ``checkpoints.state_tree``."""
     import importlib.util
     import itertools
     import pickle
@@ -1250,30 +1292,11 @@ def phase_train(dev):
             ref[compute_dtype] = one_train_step(dtype, "cpu", batch)
         for compute_dtype, dtype in dtypes.items():
             fast = dtype == torch.bfloat16
-            m, grads, stats, seen = one_train_step(dtype, dev, batch, tf32_probe=True)
-            m_cpu, g_cpu, s_cpu, _ = ref[compute_dtype]
-            if not fast:
-                if seen != [False]:
-                    raise SystemExit(f"train f32: TF32 on during the backward: {seen}")
-                for n, bn in noise.items():
-                    for g in (grads, g_cpu):
-                        if g[n].abs().max() > 1e-3 * g[bn].abs().max():
-                            raise SystemExit(f"train f32: {n} gradient is not ~0: {g[n].abs().max()}")
-            cos = leaf_cosines(grads, g_cpu, skip=noise)
-            worst = min(cos, key=cos.get)
-            err = max((grads[n] - g_cpu[n]).abs().max().item() for n in cos)
-            bn_cos = leaf_cosines(stats, s_cpu)
-            # The batch's own statistics, from new = 0.99·old + 0.01·batch
-            # (a fresh state: running mean 0, running variance 1).
-            batch_stat = lambda s, n: (s[n] - (0.99 if n.endswith("var") else 0.0)) / 0.01  # noqa: E731
-            stat_err = max(((batch_stat(stats, n) - batch_stat(s_cpu, n)).abs().max()
-                            / batch_stat(s_cpu, n).abs().max()).item() for n in stats)
-            loss_rel = abs(m["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
-            log(f"train step card vs CPU {compute_dtype} batch {CMP_BATCH}: loss {m['loss']:.6f} / "
-                f"{m_cpu['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / {m_cpu['acc']:.3f}, "
-                f"gradient leaves min cosine {cos[worst]:.7f} ({worst}), max |d| {err:.3e}; "
-                f"BN statistics min cosine {min(bn_cos.values()):.7f}, batch statistics max relative "
-                f"error {stat_err:.2e}; TF32 in backward {seen}")
+            card = one_train_step(dtype, dev, batch, tf32_probe=True)
+            m, grads, _, _ = card
+            m_cpu, g_cpu, _, _ = ref[compute_dtype]
+            ok, loss_rel, bn_cos, stat_err = step_agreement(
+                f"train step card vs CPU {compute_dtype} batch {CMP_BATCH}", card, ref[compute_dtype], noise, not fast)
             if fast:
                 # bf16 gradients stray from f32 ones by chance, leaf by leaf
                 # (PERF.md §6, training): the card's bf16 step is held to be
@@ -1286,11 +1309,7 @@ def phase_train(dev):
                 log(f"train step bf16: mean gradient distance from the CPU f32 step, card {d_card:.4f}, "
                     f"CPU bf16 {d_cpu:.4f} (card <= 1.5x)")
                 ok = (loss_rel <= 1e-2 and d_card <= 1.5 * d_cpu and stat_err <= 2e-2
-                      and min(bn_cos.values()) >= 0.999)
-            else:
-                ok = (loss_rel <= 1e-4 and cos[worst] >= 0.9999 and stat_err <= 1e-3
-                      and min(bn_cos.values()) >= 0.9999)
-            ok = ok and m["acc"] == m_cpu["acc"]
+                      and min(bn_cos.values()) >= 0.999 and m["acc"] == m_cpu["acc"])
             if not ok:
                 raise SystemExit(f"train step {compute_dtype}: the card disagrees with the CPU")
 
@@ -1336,12 +1355,351 @@ def phase_train(dev):
                 wall_ms = (time.perf_counter() - t0) * 1e3 / reps
             log_profile(f"profile train {compute_dtype} batch {TIMING_BATCH}", prof, reps, wall_ms,
                         f"{TIMING_BATCH * 1e3 / wall_ms:.1f} pairs/s under the profiler", "step")
+            if dtype == torch.float32:
+                trained = checkpoints.state_tree(state)  # host copies: the bf16 peak stays its own
             del state, prof
             log(f"train timing {compute_dtype} on: " + subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
                  "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        tmp.cleanup()
+    return trained
+
+
+SAMPLE_CLIPS = 24  # AudioSet clips; a real subset has 10^5-10^6
+SAMPLE_SECONDS = 10  # AudioSet's clip length
+SAMPLE_FPS = 30
+SAMPLE_FRAME = (256, 340)  # the ffmpeg reader's 256 px short side
+SAMPLE_SR = 48000
+# 02's defaults (batch 64, -ns 64, mux rate 2.0, one distractor) with
+# --augment --include-metadata; the mux's 64 streamers are clamped to the
+# train split's seeds.
+SAMPLE_ARGS = dict(batch_size=64, k=64, rate=2.0, num_distractors=1, augment=True, include_metadata=True)
+SAMPLE_TIMED = 4  # factory batches timed after a first one
+SAMPLE_PROCS = 4
+SAMPLE_STEPS = 16  # train steps timed on factory batches, after 2
+
+
+def sample_corpus(root: str, seed: int) -> None:
+    """SAMPLE_CLIPS clips in the layout 01 reads, made in bulk from a seed:
+    audio/<ytid>_0_10.wav (10 s of int16 at 48 kHz) and video/<ytid>_0_10.npy
+    (300 frames of 256×340×3 uint8, ~78 MB, memory-mapped by read_video)."""
+    from l3embedding_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    for d in ("audio", "video"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(SAMPLE_CLIPS):
+        name = f"clip{i:02d}_0_10"
+        frames = rng.integers(0, 256, (SAMPLE_SECONDS * SAMPLE_FPS, *SAMPLE_FRAME, 3), dtype=np.uint8)
+        np.save(os.path.join(root, "video", name + ".npy"), frames)
+        audio = (rng.standard_normal(SAMPLE_SECONDS * SAMPLE_SR) * 3000).astype(np.int16)
+        write_wav(os.path.join(root, "audio", name + ".wav"), audio, SAMPLE_SR)
+
+
+def factory_rate(index: int, subset: str, seed: int, batches: int, augment: bool = True) -> tuple[int, float, float]:
+    """One factory stream (02's sampling, seeded seed + index) → (samples in
+    the timed batches, their seconds, the seconds of the first batch, which
+    opens the streamers). Module level, so a spawned worker can run it."""
+    from l3embedding_torch.data import sample as S
+
+    gen = S.data_generator(subset, random_state=seed + index, **{**SAMPLE_ARGS, "augment": augment})
+    t0 = time.perf_counter()
+    next(gen)
+    t1 = time.perf_counter()
+    for _ in range(batches):
+        next(gen)
+    return batches * SAMPLE_ARGS["batch_size"], time.perf_counter() - t1, t1 - t0
+
+
+def check_factory_batch(batch: dict, paths: dict, full: bool) -> None:
+    """Shapes and dtypes; each label against its two metadata file names;
+    the crop, frame and audio-start bounds and the gain range. With `full`,
+    each row is also made again from its sources and its metadata: the
+    audio is the source slice at audio_start_sample_idx × audio_gain, and
+    the frame the native augmentation of the recorded crop, in one of the
+    two orders."""
+    from l3embedding_torch import native
+    from l3embedding_torch.data.audio_io import read_audio, to_mono_int16
+    from l3embedding_torch.data.video_io import read_video
+
+    n = SAMPLE_ARGS["batch_size"]
+    want = {"audio": ((n, 1, SAMPLE_SR), np.int16), "video": ((n, 224, 224, 3), np.uint8),
+            "label": ((n, 2), np.int64)}
+    for k, (shape, dtype) in want.items():
+        if batch[k].shape != shape or batch[k].dtype != dtype:
+            raise SystemExit(f"sample: {k} is {batch[k].shape} {batch[k].dtype}, want {shape} {dtype}")
+    stem = lambda b: os.path.splitext(b.decode())[0]  # noqa: E731
+    match = np.array([stem(a) == stem(v) for a, v in zip(batch["audio_file"], batch["video_file"])])
+    if not (np.array_equal(batch["label"][:, 1], match) and np.array_equal(batch["label"][:, 0], ~match)):
+        raise SystemExit("sample: a label disagrees with its audio and video file names")
+    x, y = batch["video_bounding_box_start_x"], batch["video_bounding_box_start_y"]
+    frame0 = (batch["audio_start_sample_idx"] / float(SAMPLE_SR) * SAMPLE_FPS).astype(int)  # as the sampler
+    ok = ((x >= 0).all() and (x < SAMPLE_FRAME[0] - 224).all() and (y >= 0).all()
+          and (y < SAMPLE_FRAME[1] - 224).all()
+          and (batch["audio_start_sample_idx"] >= 0).all()
+          and (batch["audio_start_sample_idx"] < (SAMPLE_SECONDS - 1) * SAMPLE_SR).all()
+          and (batch["video_start_frame_idx"] >= frame0).all()
+          and (batch["video_start_frame_idx"] < frame0 + SAMPLE_FPS).all()
+          and ((batch["audio_gain"] >= 0.9) & (batch["audio_gain"] <= 1.1)).all())
+    if not ok:
+        raise SystemExit("sample: a crop, frame, audio start or gain is out of its bounds")
+    if not full:
+        return
+    audio = {}
+    for i in range(n):
+        a, v = batch["audio_file"][i].decode(), batch["video_file"][i].decode()
+        if a not in audio:
+            audio[a] = to_mono_int16(read_audio(paths[a])[0])
+        s0 = int(batch["audio_start_sample_idx"][i])
+        want_audio = (audio[a][s0:s0 + SAMPLE_SR].astype(float) * batch["audio_gain"][i]).astype(np.int16)
+        frame = read_video(paths[v])[batch["video_start_frame_idx"][i]]
+        crop = frame[x[i]:x[i] + 224, y[i]:y[i] + 224]
+        args = (bool(batch["video_horizontal_flip"][i]), float(batch["video_saturation_factor"][i]),
+                float(batch["video_brightness_delta"][i]))
+        frames = [native.augment_frame(crop, *args, sat_first=order) for order in (True, False)]
+        if not np.array_equal(batch["audio"][i, 0], want_audio) or not any(
+                np.array_equal(batch["video"][i], f) for f in frames):
+            raise SystemExit(f"sample: row {i} is not made from its sources and its metadata")
+
+
+def phase_sample(dev, trained) -> None:
+    """The AVC sample factory (stages 01 and 02, the native host library)
+    feeding the trainer, and directory checkpoints. A seeded corpus of 24
+    AudioSet-length clips (10 s; video as .npy at 30 fps, 256×340, ~1.9 GB;
+    int16 WAV at 48 kHz) in a temporary directory; the port's 01 function
+    splits it; 02's sampling (batch 64, 64 streamers, rate 2.0, --augment,
+    --include-metadata, one distractor) makes batches, each checked (shapes,
+    labels against the metadata, bounds; the first made again from its
+    sources) and the first drawn twice from one seed; the factory's
+    samples/s in one process (native augmentation, numpy augmentation, none)
+    and in 4 processes through map_iterate_in_parallel; the native
+    augment_frame against its numpy plain version on 64 frames;
+    cnn_L3_melspec2 at full width trained on the factory's stream, f32 and
+    bf16, through AsyncBatchPipeline → to_device → the train step (steps/s,
+    data wait per step, the device's idle share), and one f32 step at batch
+    4 on a factory batch against a CPU copy; the 02 CLI and train() over its
+    files where h5py is installed; and `trained` (phase_train's f32 state, a
+    ``state_tree``) put on the card and through save_state_dir /
+    load_state_dir, every leaf bit for bit."""
+    import collections
+    import contextlib
+    import csv
+    import functools
+    import importlib.util
+    import tempfile
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from l3embedding_torch import native
+    from l3embedding_torch.cli.create_subsets import create_subsets
+    from l3embedding_torch.compat.from_jax import bn_fed_biases
+    from l3embedding_torch.data import sample as S
+    from l3embedding_torch.data.utils import map_iterate_in_parallel
+    from l3embedding_torch.data.video_io import read_video
+    from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training import checkpoints, loop
+    from l3embedding_torch.training.data import DEFAULT_KEYS, AsyncBatchPipeline, to_device
+    from l3embedding_torch.training.dir_checkpoints import load_state_dir, save_state_dir
+    from l3embedding_torch.training.state import create_train_state
+    from l3embedding_torch.training.steps import make_train_step
+
+    if not native.available():
+        raise SystemExit("sample: the native host library is not available")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        root = os.path.join(tmp.name, "corpus")
+        t0 = time.perf_counter()
+        sample_corpus(root, seed=40)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        log(f"sample corpus: {SAMPLE_CLIPS} clips of {SAMPLE_SECONDS} s ({size / 1e9:.2f} GB: .npy video "
+            f"{SAMPLE_FPS} fps {SAMPLE_FRAME[0]}x{SAMPLE_FRAME[1]}, int16 WAV {SAMPLE_SR} Hz) made in "
+            f"{time.perf_counter() - t0:.1f} s; cuts: {SAMPLE_CLIPS} clips where a real subset has 10^5-10^6, "
+            f"the mux's {SAMPLE_ARGS['k']} streamers clamped to the train split's seeds")
+
+        # 01: the three CSVs partition the clips.
+        paths = create_subsets(root, os.path.join(tmp.name, "subsets"), "smoke")
+        parts = []
+        for p in paths:
+            with open(p) as f:
+                parts.append([r["ytid"] for r in csv.DictReader(f)])
+        every = sorted(f"clip{i:02d}" for i in range(SAMPLE_CLIPS))
+        log(f"sample 01: train / valid / test {[len(p) for p in parts]} clips")
+        if sorted(sum(parts, [])) != every or not all(parts):
+            raise SystemExit(f"sample 01: the subsets do not partition the clips: {parts}")
+        train_csv = paths[0]
+        with open(train_csv) as f:
+            files = {os.path.basename(r[k]): r[k] for r in csv.DictReader(f)
+                     for k in ("audio_filepath", "video_filepath")}
+
+        # 02's sampling: every batch checked, one seed draws one first batch.
+        batches = [b for b, _ in zip(S.data_generator(train_csv, random_state=41, **SAMPLE_ARGS), range(3))]
+        for i, b in enumerate(batches):
+            check_factory_batch(b, files, full=i == 0)
+        again = next(S.data_generator(train_csv, random_state=41, **SAMPLE_ARGS))
+        same = sorted(again) == sorted(batches[0]) and all(np.array_equal(again[k], batches[0][k]) for k in again)
+        log(f"sample 02: {len(batches)} batches of {SAMPLE_ARGS['batch_size']}, keys {sorted(batches[0])}, "
+            f"labels {batches[0]['label'].dtype} one-hot ({int(batches[0]['label'][:, 1].sum())} matched in the "
+            f"first); shapes, labels against the file names and bounds checked, the first batch made again "
+            f"from its sources; the same seed draws the same first batch: {same}")
+        if not same:
+            raise SystemExit("sample 02: one seed drew two different first batches")
+
+        # The factory's rate: one process three ways, then 4 processes.
+        rates = {}
+        for name, augment, plain in (("augment native", True, False), ("augment numpy", True, True),
+                                     ("no augmentation", False, False)):
+            with mock.patch.object(native, "_load", lambda: None) if plain else contextlib.nullcontext():
+                n, secs, first = factory_rate(0, train_csv, 42, SAMPLE_TIMED, augment)
+            rates[name] = n / secs
+            log(f"sample factory, 1 process, {name}: {rates[name]:.1f} samples/s ({n} samples in {secs:.3f} s, "
+                f"after a first batch of {first:.3f} s)")
+        t0 = time.perf_counter()
+        res = map_iterate_in_parallel(range(SAMPLE_PROCS), functools.partial(
+            factory_rate, subset=train_csv, seed=43, batches=SAMPLE_TIMED), processes=SAMPLE_PROCS)
+        wall = time.perf_counter() - t0
+        total = sum(n for n, _, _ in res) + SAMPLE_PROCS * SAMPLE_ARGS["batch_size"]
+        rates["4 processes"] = sum(n / secs for n, secs, _ in res)
+        log(f"sample factory, {SAMPLE_PROCS} spawned processes, augment native: {rates['4 processes']:.1f} "
+            f"samples/s (the workers' timed batches, summed); {total / wall:.1f} samples/s over the call's "
+            f"{wall:.2f} s, start-up included; per worker "
+            f"{', '.join(f'{n / secs:.1f}' for n, secs, _ in res)}")
+
+        # The native augment_frame against its numpy plain version.
+        rng = np.random.RandomState(44)
+        video = read_video(sorted(v for v in files.values() if v.endswith(".npy"))[0])
+        diffs, t_native, t_plain = [], 0.0, 0.0
+        for _ in range(64):
+            x, y = rng.randint(SAMPLE_FRAME[0] - 224), rng.randint(SAMPLE_FRAME[1] - 224)
+            crop = np.ascontiguousarray(video[rng.randint(len(video))][x:x + 224, y:y + 224])
+            args = (rng.rand() < 0.5, float(np.float32(rng.rand() + 0.5)),
+                    float(np.float32((2 * rng.rand() - 1) * 32 / 255)), rng.rand() < 0.5)
+            t0 = time.perf_counter()
+            got = native.augment_frame(crop, *args)
+            t1 = time.perf_counter()
+            want = native.augment_frame_plain(crop, *args)
+            t_plain += time.perf_counter() - t1
+            t_native += t1 - t0
+            diffs.append(np.abs(got.astype(int) - want.astype(int)))
+        diffs = np.stack(diffs)
+        log(f"sample augment_frame, native against numpy on 64 frames of 224x224: max |d| {diffs.max()} LSB "
+            f"(<= 1), {100 * (diffs > 0).mean():.3f} % of pixels differ (< 2 %); {1e3 * t_native / 64:.3f} ms "
+            f"a frame native, {1e3 * t_plain / 64:.3f} ms numpy")
+        if diffs.max() > 1 or (diffs > 0).mean() >= 0.02:
+            raise SystemExit("sample: the native augment_frame disagrees with its numpy plain version")
+
+        # Train on the factory's stream: the trainer's feed, f32 and bf16.
+        spec = build_model(TRAIN_MODEL)
+        step = make_train_step()
+        for compute_dtype, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            kernel = f"mel_frontend_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            state = create_train_state(spec, torch.Generator().manual_seed(45), 1e-4, dtype, dev)
+            feed = (to_device({k: b[k] for k in DEFAULT_KEYS}, dev)
+                    for b in S.data_generator(train_csv, random_state=46, **SAMPLE_ARGS))
+
+            def run():
+                nonlocal state
+                waits, starts, losses = [], [], collections.deque()
+                with AsyncBatchPipeline(feed) as pipe:
+                    for _ in range(2):
+                        state, m = step(state, next(pipe))
+                    float(m["loss"])
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+                        t0 = time.perf_counter()
+                        for _ in range(SAMPLE_STEPS):
+                            starts.append(time.perf_counter())
+                            batch = next(pipe)
+                            waits.append(time.perf_counter() - starts[-1])
+                            state, m = step(state, batch)
+                            losses.append(m["loss"])
+                            if len(losses) > 8:  # the loop's window of steps in flight
+                                float(losses.popleft())
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                return waits, starts, [float(x) for x in losses], wall, prof
+
+            (waits, starts, losses, wall, prof), counts = main_path(run)
+            # The queue holds up to 4 batches made during the first 2 steps:
+            # the last 8 steps' interval is the steady rate.
+            steady = (starts[-1] - starts[-9]) / 8
+            log(f"sample train {TRAIN_MODEL} {compute_dtype} batch {SAMPLE_ARGS['batch_size']} on the factory's "
+                f"stream: {SAMPLE_STEPS / wall:.3f} steps/s ({SAMPLE_STEPS * SAMPLE_ARGS['batch_size'] / wall:.1f} "
+                f"pairs/s, {1e3 * wall / SAMPLE_STEPS:.1f} ms a step; the last 8 steps {1e3 * steady:.1f} ms a step, "
+                f"{SAMPLE_ARGS['batch_size'] / steady:.1f} pairs/s), data wait {1e3 * np.mean(waits):.1f} ms a step "
+                f"(last 8 steps {1e3 * np.mean(waits[-8:]):.1f}, max {1e3 * max(waits):.1f}), last losses "
+                f"{' '.join(f'{x:.4f}' for x in losses[-3:])}, launches {dict(counts)}")
+            log_profile(f"profile sample train {compute_dtype}", prof, SAMPLE_STEPS, 1e3 * wall / SAMPLE_STEPS,
+                        f"{SAMPLE_STEPS / wall:.3f} steps/s", "step")
+            if counts[kernel] < SAMPLE_STEPS + 2 or not np.isfinite(losses).all():
+                raise SystemExit(f"sample train {compute_dtype}: {counts[kernel]} {kernel} launches, losses {losses}")
+            del state, prof
+
+        # One f32 step at batch 4 on a factory batch, card against a CPU copy.
+        small = {k: batches[0][k][:CMP_BATCH] for k in DEFAULT_KEYS}
+        card = one_train_step(torch.float32, dev, small, tf32_probe=True)
+        cpu = one_train_step(torch.float32, "cpu", small)
+        ok = step_agreement(f"sample train step card vs CPU float32 batch {CMP_BATCH} (a factory batch)", card, cpu,
+                            bn_fed_biases(TRAIN_MODEL), True)[0]
+        if not ok:
+            raise SystemExit("sample train step: the card disagrees with the CPU on a factory batch")
+
+        # The 02 CLI and train() over its files, where h5py is installed.
+        if importlib.util.find_spec("h5py") is not None:
+            out = os.path.join(tmp.name, "cli_h5")
+            t0 = time.perf_counter()
+            rc = subprocess.run([sys.executable, "-m", "l3embedding_torch.cli.generate_samples", "-n", "4",
+                                 "-bs", "16", "-a", "-im", train_csv, "128", out], cwd=REPO, timeout=600).returncode
+            n_files = len(os.listdir(out)) if os.path.isdir(out) else 0
+            (_, hist), counts = main_path(lambda: loop.train(
+                out, out, os.path.join(tmp.name, "cli_run"), num_epochs=1, train_epoch_size=2,
+                validation_epoch_size=1, train_batch_size=16, validation_batch_size=16, model_type=TRAIN_MODEL,
+                compute_dtype="float32", disable_logging=True, device=dev))
+            row = [hist[k][0] for k in ("loss", "acc", "val_loss", "val_acc")]
+            log(f"sample 02 CLI -n 4: rc {rc}, {n_files} files in {time.perf_counter() - t0:.1f} s with train() "
+                f"over them: {row}, launches {dict(counts)}")
+            if rc != 0 or n_files != 8 or not np.isfinite(row).all() or counts["mel_frontend_f32"] < 1:
+                raise SystemExit("sample: the 02 CLI or train() over its files failed")
+        else:
+            log("sample 02 CLI and train() over its files: skipped, h5py is not installed on this machine (the "
+                "CLI writes h5 files); the factory's batches went to the trainer in memory above")
+
+        # Directory checkpoints of phase_train's full-width f32 state.
+        state = checkpoints.load_state_tree(trained, create_train_state(
+            spec, torch.Generator().manual_seed(49), 1e-4, torch.float32, dev))
+        snap = os.path.join(tmp.name, "snap")
+        t0 = time.perf_counter()
+        save_state_dir(snap, state)
+        t_save = time.perf_counter() - t0
+        other = create_train_state(spec, torch.Generator().manual_seed(47), 1e-4, torch.float32, dev)
+        t0 = time.perf_counter()
+        load_state_dir(snap, other)
+        t_load = time.perf_counter() - t0
+        ckpt = os.path.join(tmp.name, "state.ckpt")
+        t0 = time.perf_counter()
+        checkpoints.save_state(ckpt, state)
+        t_ckpt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoints.load_state(ckpt, create_train_state(spec, torch.Generator().manual_seed(48), 1e-4,
+                                                        torch.float32, dev))
+        t_ckpt_load = time.perf_counter() - t0
+        got = checkpoints.state_tree(other)
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+        want, got = dict(leaves(trained)), dict(leaves(got))
+        bad = [k for k in want if k not in got or want[k].dtype != got[k].dtype or not np.array_equal(want[k], got[k])]
+        size = sum(os.path.getsize(os.path.join(snap, f)) for f in os.listdir(snap))
+        log(f"sample dir checkpoint {TRAIN_MODEL} f32 (step {state.step}): {len(want)} leaves, "
+            f"{size / 1e6:.1f} MB in {sorted(os.listdir(snap))}; save_state_dir {t_save:.3f} s, load_state_dir "
+            f"{t_load:.3f} s; save_state (.ckpt, {os.path.getsize(ckpt) / 1e6:.1f} MB) {t_ckpt:.3f} s, load_state "
+            f"{t_ckpt_load:.3f} s; leaves not bit-equal after the round trip: {bad}")
+        if bad or set(got) != set(want) or other.step != state.step:
+            raise SystemExit("sample: the directory checkpoint did not restore every leaf bit for bit")
+    finally:
         tmp.cleanup()
 
 
@@ -2117,11 +2475,18 @@ def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
     from l3embedding_torch.ops import block1_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
 
+    from l3embedding_torch import native
+
     t0 = time.perf_counter()
     names = ("mel_frontend", "spec_frontend", "block1_conv", "int8_conv")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(native.build)
         for name, lib in zip(names, pool.map(lambda n: cuda_build.build(n, verbose=True), names)):
             log(f"built {name}: {lib.name}")
+        host = host.result()
+    if host is None or not native.available():
+        raise SystemExit("build: the native host library (native/l3host.cpp) did not build or load")
+    log(f"built the native host library: {host.relative_to(REPO)}")
     mel_kernel._library()
     spec_kernel._library()
     block1_kernel._library()
@@ -2173,7 +2538,9 @@ def main() -> int:
     phase_files(dev)
     phase_serve(dev)
     phase_profile(dev)
-    phase_train(dev)
+    trained = phase_train(dev)
+    phase_sample(dev, trained)
+    del trained
     phase_int8(dev)
     corpus_split = phase_corpus(dev)
     phase_ddp(dev)

@@ -129,7 +129,12 @@ def load_state(path: str, state):
     """Restore a ``.ckpt`` (written by either package) into `state`, a
     TrainState of the same model type (from ``create_train_state``), in
     place; returns it."""
-    tree = read_tree(path)
+    return load_state_tree(read_tree(path), state)
+
+
+def load_state_tree(tree: dict, state):
+    """Put {step, params, batch_stats, opt_state} in flax's layout (as
+    ``state_tree`` makes it) into `state`, in place; returns it."""
     model = state.model
     device = next(model.parameters()).device
     sd = avc_from_jax_variables(tree, state.model_type)

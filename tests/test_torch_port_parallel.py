@@ -18,7 +18,9 @@ parameter and new BN statistic at cosine >= 0.99999 with its norm within
 for rounding and is held to that instead. Each planted fault (a moment
 reduction autograd does not see, per-rank variances averaged, DDP's
 ``broadcast_buffers`` under ``per_replica``, each rank's own dB reference
-under db_batch_global) must fail one of them.
+under db_batch_global) must fail one of them. The job also saves the sync
+step's state as a directory snapshot from both ranks
+(``training/dir_checkpoints.py``), which restores in this one process.
 """
 
 import json
@@ -426,3 +428,18 @@ def test_two_rank_checkpoint_restores_in_one_process_and_jax(job, runs):
     assert_trees_equal(ours["params"], theirs.params)
     assert_trees_equal(ours["batch_stats"], theirs.batch_stats)
     assert_trees_equal(ours["opt_state"]["0"]["mu"], theirs.opt_state[0].mu)
+
+
+def test_two_rank_directory_snapshot_restores_in_one_process(job):
+    """The sync step's state, saved by both ranks as one directory snapshot
+    (``training/dir_checkpoints.py``), restores in one process to the
+    ``.ckpt`` that the same job wrote of it, leaf for leaf."""
+    from l3embedding_torch.training.dir_checkpoints import load_state_dir
+    from test_torch_port_train import port_state
+
+    files = sorted(os.listdir(job / "out" / "sync_dir"))
+    assert files[0] == ".metadata" and all(f.endswith(".distcp") for f in files[1:])
+    state = port_state(MODEL)
+    load_state_dir(str(job / "out" / "sync_dir"), state)
+    assert state.step == 1
+    assert_trees_equal(checkpoints.state_tree(state), checkpoints.read_tree(str(job / "out" / "sync_rank0.ckpt")))

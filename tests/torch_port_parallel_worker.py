@@ -11,7 +11,8 @@ state), the global batches (``batch.npz`` of 4 rows, ``batch8.npz`` of 8,
 (``SCENARIOS``: sync and per_replica at 4 rows, sync at 8, accumulation over
 2 microbatches, a db_batch_global model, the eval step, and four planted
 faults) as a ``.ckpt`` of the new state and an ``.npz`` of gradients and
-metrics, then the ``train()`` runs (uninterrupted; preempted on rank 1
+metrics (the sync step's state also as a directory snapshot, ``sync_dir``,
+which both ranks write), then the ``train()`` runs (uninterrupted; preempted on rank 1
 alone; resumed) with a JSON record of what each rank saw and wrote. Imports
 no JAX.
 """
@@ -40,6 +41,7 @@ from l3embedding_torch.parallel import (  # noqa: E402
 )
 from l3embedding_torch.tools.dp_check import WriteLog  # noqa: E402
 from l3embedding_torch.training import checkpoints, loop, steps  # noqa: E402
+from l3embedding_torch.training.dir_checkpoints import save_state_dir  # noqa: E402
 from l3embedding_torch.training.state import create_train_state  # noqa: E402
 
 MODEL = "tiny_L3"
@@ -137,6 +139,9 @@ def run_steps(work, out):
             if patch:
                 setattr(patch[0], patch[1], real)
         checkpoints.save_state(os.path.join(out, f"{name}_rank{rank()}.ckpt"), state)
+        if name == "sync":
+            # Both ranks write one directory snapshot of the same state.
+            save_state_dir(os.path.join(out, "sync_dir"), state)
         params = dict(state.model.named_parameters())
         grads = {}
         for tname, coll, path, layout in avc_leaves(MODEL):
