@@ -40,7 +40,13 @@ cnn_L3_melspec2 at full width: two ranks on the card through gloo, and one
 rank per card through NCCL where several cards are visible, launched with
 torch.distributed.run (``l3embedding_torch.tools.dp_check``), held against
 one process on the whole batch (f32, bf16, per_replica), with the epoch
-cycle, the chief's writes and a preemption raised on rank 1 alone; and the
+cycle, the chief's writes and a preemption raised on rank 1 alone; tensor
+parallelism (phase_tp): the same launcher with the state split over a
+model axis of 2 (two ranks on the card over gloo, a rank per card over
+NCCL on 2 and 4 cards), the f32, bf16 and accumulated steps held against
+one process, each rank's slices against the checkpoint the ranks gathered,
+that checkpoint in EmbeddingExtractor, bytes a rank and ms a step beside
+pure data parallelism; and the
 VGGish baseline (phase_vggish): the card against a CPU copy, examples/s and
 the 05 CLI with --features vggish on the 40 WAVs. Last, the downstream
 classifier (phase_classify, stage 06's MLP): classifier/train.py::train_mlp
@@ -1127,10 +1133,13 @@ def write_h5_corpus(path: str, batches: list[dict]) -> None:
                 f.create_dataset(k, data=v)
 
 
-def one_train_step(dtype, device, batch: dict, tf32_probe: bool = False):
+def one_train_step(dtype, device, batch: dict, tf32_probe: bool = False, accum_steps: int = 1,
+                   save_to: str | None = None):
     """One step of a fresh seeded state → (metrics, grads, running stats,
-    TF32 flags seen during the backward), tensors as f64 on the CPU."""
+    TF32 flags seen during the backward), tensors as f64 on the CPU; the new
+    state written to `save_to` when given."""
     from l3embedding_torch.models.registry import build_model
+    from l3embedding_torch.training import checkpoints
     from l3embedding_torch.training.state import create_train_state
     from l3embedding_torch.training.steps import make_train_step
 
@@ -1140,7 +1149,9 @@ def one_train_step(dtype, device, batch: dict, tf32_probe: bool = False):
     if tf32_probe:
         w = state.model.audio_model.embedding_conv.weight
         w.register_hook(lambda g: seen.append(torch.backends.cudnn.allow_tf32))
-    state, metrics = make_train_step()(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    state, metrics = make_train_step(accum_steps)(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    if save_to is not None:
+        checkpoints.save_state(save_to, state)
     grads = {n: p.grad.double().cpu() for n, p in state.model.named_parameters()}
     stats = {n: b.double().cpu() for n, b in state.model.named_buffers() if "running" in n}
     return {k: float(v) for k, v in metrics.items()}, grads, stats, seen
@@ -2008,6 +2019,46 @@ def batch_stat_err(stats: dict, want: dict) -> float:
                for n in want)
 
 
+def parallel_step_gates(what: str, name: str, m: dict, got: tuple, ref: dict, noise: dict, d_one: float) -> bool:
+    """One step of several ranks (m: its metrics; got: its gathered
+    (gradients, running statistics)) against ref[name], one process on the
+    whole global batch (``one_train_step``'s result), at phase_ddp's gates.
+    f32 (any name but "bf16"): the loss within 1e-5, the same accuracy,
+    every gradient leaf at cosine >= 0.9999 but the BN-fed conv biases and
+    DDP_CANCELLING_LEAF (>= 0.999; for "f32" logged against ref["f64"], a
+    float64 step), BN batch statistics within 1e-3. bf16: the loss within
+    1e-2, the same accuracy, the mean gradient distance from ref["f32"] at
+    most 1.5x the one-process bf16 step's (d_one), batch statistics within
+    2e-2. Logs one line; → passed."""
+    m1 = ref[name][0]
+    loss_rel = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
+    cos = leaf_cosines(got[0], ref[name][1], skip=noise)
+    ranked = sorted(cos, key=cos.get)
+    worst = min((n for n in ranked if n != DDP_CANCELLING_LEAF), key=cos.get)
+    stat_err = batch_stat_err(got[1], ref[name][2])
+    line = (f"{what}: {name} step at global batch {DDP_BATCH} vs one process: loss {m['loss']:.6f} / "
+            f"{m1['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / {m1['acc']:.3f}, "
+            f"gradient leaves min cosine {cos[worst]:.7f} ({worst}; {DDP_CANCELLING_LEAF} "
+            f"{cos[DDP_CANCELLING_LEAF]:.7f}; lowest {[(n, round(cos[n], 7)) for n in ranked[:4]]}), "
+            f"BN batch statistics max relative error {stat_err:.2e}")
+    if name == "bf16":
+        d = np.mean([1 - c for c in leaf_cosines(got[0], ref["f32"][1], skip=noise).values()])
+        line += f"; mean gradient distance from the one-process f32 step {d:.4f} (one-process bf16 {d_one:.4f}, <= 1.5x)"
+        ok = loss_rel <= 1e-2 and d <= 1.5 * d_one and stat_err <= 2e-2
+    else:
+        if name == "f32":
+            leaf = {k: v[DDP_CANCELLING_LEAF] for k, v in
+                    (("ranks", got[0]), ("one process", ref["f32"][1]), ("float64", ref["f64"][1]))}
+            f64 = {k: leaf_cosines({0: v}, {0: leaf["float64"]})[0] for k, v in leaf.items() if k != "float64"}
+            line += (f"; {DDP_CANCELLING_LEAF} {[round(float(v), 9) for v in leaf['ranks']]} (ranks), "
+                     f"{[round(float(v), 9) for v in leaf['one process']]} (one process), "
+                     f"{[round(float(v), 9) for v in leaf['float64']]} (float64 step), cosine to float64 "
+                     + ", ".join(f"{k} {c:.7f}" for k, c in f64.items()))
+        ok = loss_rel <= 1e-5 and cos[worst] >= 0.9999 and cos[DDP_CANCELLING_LEAF] >= 0.999 and stat_err <= 1e-3
+    log(line)
+    return ok and m["acc"] == m1["acc"]
+
+
 def phase_ddp(dev):
     """Data-parallel training on cnn_L3_melspec2 at full width: two ranks on
     this card over gloo (and one rank per card over NCCL with two or more
@@ -2066,34 +2117,7 @@ def phase_ddp(dev):
                    for name in ("f32", "bf16", "per_replica")}
             failures = []
             for name in ("f32", "bf16"):
-                m, m1 = recs[0][f"{name}_metrics"], ref[name][0]
-                loss_rel = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
-                cos = leaf_cosines(got[name][0], ref[name][1], skip=noise)
-                ranked = sorted(cos, key=cos.get)
-                worst = min((n for n in ranked if n != DDP_CANCELLING_LEAF), key=cos.get)
-                stat_err = batch_stat_err(got[name][1], ref[name][2])
-                line = (f"{what}: {name} step at global batch {DDP_BATCH} vs one process: loss {m['loss']:.6f} / "
-                        f"{m1['loss']:.6f} (rel {loss_rel:.2e}), acc {m['acc']:.3f} / {m1['acc']:.3f}, "
-                        f"gradient leaves min cosine {cos[worst]:.7f} ({worst}; {DDP_CANCELLING_LEAF} "
-                        f"{cos[DDP_CANCELLING_LEAF]:.7f}; lowest {[(n, round(cos[n], 7)) for n in ranked[:4]]}), "
-                        f"BN batch statistics max relative error {stat_err:.2e}")
-                if name == "f32":
-                    leaf = {k: v[DDP_CANCELLING_LEAF] for k, v in
-                            (("ranks", got[name][0]), ("one process", ref["f32"][1]), ("float64", ref["f64"][1]))}
-                    f64 = {k: leaf_cosines({0: v}, {0: leaf["float64"]})[0] for k, v in leaf.items() if k != "float64"}
-                    line += (f"; {DDP_CANCELLING_LEAF} {[round(float(v), 9) for v in leaf['ranks']]} (ranks), "
-                             f"{[round(float(v), 9) for v in leaf['one process']]} (one process), "
-                             f"{[round(float(v), 9) for v in leaf['float64']]} (float64 step), cosine to float64 "
-                             + ", ".join(f"{k} {c:.7f}" for k, c in f64.items()))
-                    ok = (loss_rel <= 1e-5 and cos[worst] >= 0.9999 and cos[DDP_CANCELLING_LEAF] >= 0.999
-                          and stat_err <= 1e-3)
-                else:
-                    d_dp = np.mean([1 - c for c in leaf_cosines(got[name][0], ref["f32"][1], skip=noise).values()])
-                    line += (f"; mean gradient distance from the one-process f32 step {d_dp:.4f} "
-                             f"(one-process bf16 {d_one:.4f}, <= 1.5x)")
-                    ok = loss_rel <= 1e-2 and d_dp <= 1.5 * d_one and stat_err <= 2e-2
-                log(line)
-                if not (ok and m["acc"] == m1["acc"]):
+                if not parallel_step_gates(what, name, recs[0][f"{name}_metrics"], got[name], ref, noise, d_one):
                     failures.append(f"{name} step")
             pr_err = batch_stat_err(got["per_replica"][1], per_replica_want(nproc))
             log(f"{what}: per_replica running statistics vs the mean of {nproc} one-process steps on the ranks' "
@@ -2151,7 +2175,7 @@ def phase_ddp(dev):
             results = {}
             for k in range(1, n_cards + 1):
                 run_ranks(k, ["time", work, "--batch-per-rank", str(DDP_TIMING_BATCH)], timeout=600, cards=k)
-                with open(os.path.join(work, f"time_{k}.json")) as f:
+                with open(os.path.join(work, f"time_{k}_m1.json")) as f:
                     results[k] = json.load(f)
             # One card runs the one-device step (no group); from two cards on
             # the step is the data-parallel one, whose BN works from sums.
@@ -2166,6 +2190,130 @@ def phase_ddp(dev):
         log("ddp timing on: " + subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().replace("\n", " | "))
+    finally:
+        tmp.cleanup()
+
+
+TP_MODEL_AXIS = 2
+TP_EMBED_WINDOWS = 8  # audio windows embedded from the TP and the one-process checkpoints
+
+
+def smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().replace("\n", " | ")
+
+
+def phase_tp(dev):
+    """Tensor parallelism (parallel/tp.py) on cnn_L3_melspec2 at full width:
+    tools/dp_check's ``tp`` mode under torch.distributed.run, the state split
+    over a model axis of 2 by tp_shard_state: two ranks on this card over
+    gloo (data 1 × model 2), and one rank per card over NCCL on 2 cards
+    (data 1 × model 2) and on 4 (data 2 × model 2) where there are as many.
+    The f32, bf16 and accum_steps=2 steps at a global batch of 8 against one
+    process on the whole batch at phase_ddp's gates (parallel_step_gates);
+    each rank's split slices equal to its slices of the gathered state the
+    ranks wrote, the replicated leaves equal on every rank; that .ckpt
+    into EmbeddingExtractor against the one-process step's .ckpt (cosine
+    >= 0.9999); every rank through the mel kernel in f32 and bf16. Logged:
+    parameter and Adam bytes a rank against pure data parallelism, and the
+    ms a step at 64 rows a data replica, TP beside pure data parallelism on
+    the same ranks and cards, with the card's name and power limit."""
+    import hashlib
+    import tempfile
+
+    from l3embedding_torch.compat.from_jax import avc_from_jax_variables, bn_fed_biases
+    from l3embedding_torch.embed.extract import EmbeddingExtractor
+    from l3embedding_torch.parallel.tp import split_leaves
+    from l3embedding_torch.training import checkpoints
+
+    n_cards = torch.cuda.device_count()
+    noise = bn_fed_biases(TRAIN_MODEL)
+    split = split_leaves(TRAIN_MODEL)
+    batch = avc_batches(1, DDP_BATCH, seed=31)[0]
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        one_ckpt = os.path.join(tmp.name, "one_f32.ckpt")
+        ref = {"f32": one_train_step(torch.float32, dev, batch, save_to=one_ckpt),
+               "bf16": one_train_step(torch.bfloat16, dev, batch),
+               "accum2": one_train_step(torch.float32, dev, batch, accum_steps=2),
+               "f64": one_train_step(torch.float64, dev, batch)}
+        d_one = np.mean([1 - c for c in leaf_cosines(ref["bf16"][1], ref["f32"][1], skip=noise).values()])
+        windows = audio_windows(TP_EMBED_WINDOWS, seed=41)
+        one_emb = EmbeddingExtractor(one_ckpt, TRAIN_MODEL, "short", device=dev).embed_windows(windows)
+        torch.cuda.empty_cache()
+        layouts = [("gloo", 2, 1)] + [("nccl", k, k) for k in (2, 4) if k <= n_cards]
+        for backend, nproc, cards in layouts:
+            work = os.path.join(tmp.name, f"{backend}{nproc}")
+            os.makedirs(work)
+            np.savez(os.path.join(work, "batches.npz"), **{k: v[None] for k, v in batch.items()})
+            wall = run_ranks(nproc, ["tp", work, "--model-axis", str(TP_MODEL_AXIS)], timeout=300, cards=cards)
+            recs = []
+            for r in range(nproc):
+                with open(os.path.join(work, f"tp_rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            data = nproc // TP_MODEL_AXIS
+            what = f"tp {backend} {nproc} ranks (data {data} x model {TP_MODEL_AXIS}) on {cards} card(s)"
+            if {r["backend"] for r in recs} != {backend} or len({r["device"] for r in recs}) != min(nproc, cards):
+                raise SystemExit(f"{what}: ranks ran on {[(r['backend'], r['device']) for r in recs]}")
+            z = np.load(os.path.join(work, "tp_steps.npz"))
+            failures = []
+            for name in ("f32", "bf16", "accum2"):
+                got = ({n: torch.from_numpy(z[f"{name}/grad/{n}"]).double() for n in ref["f32"][1]},
+                       {n: torch.from_numpy(z[f"{name}/stat/{n}"]) for n in ref["f32"][2]})
+                if not parallel_step_gates(what, name, recs[0][f"{name}_metrics"], got, ref, noise, d_one):
+                    failures.append(f"{name} step")
+                if len({r[f"{name}_digests"]["replicated"] for r in recs}) != 1:
+                    failures.append(f"{name}: replicated leaves differ between ranks")
+            # Each rank's slices after the f32 step against the state the ranks gathered and wrote.
+            tp_ckpt = os.path.join(work, "tp_f32.ckpt")
+            sd = avc_from_jax_variables(checkpoints.read_tree(tp_ckpt), TRAIN_MODEL)
+            for r in recs:
+                m = r["mesh"][3]
+                for n, dim in split.items():
+                    k = sd[n].shape[dim] // TP_MODEL_AXIS
+                    want = hashlib.sha256(sd[n].narrow(dim, m * k, k).contiguous().numpy().tobytes()).hexdigest()
+                    if r["f32_digests"][n] != want:
+                        failures.append(f"rank {r['rank']}: {n} is not its slice of the gathered state")
+            emb = EmbeddingExtractor(tp_ckpt, TRAIN_MODEL, "short", device=dev).embed_windows(windows)
+            emb_cos = row_cosines(torch.from_numpy(emb), torch.from_numpy(one_emb)).min().item()
+            if emb.shape != one_emb.shape or not np.isfinite(emb).all() or emb_cos < 0.9999:
+                failures.append(f"EmbeddingExtractor on the TP checkpoint: cosine {emb_cos}")
+            if len({json.dumps(r["eval"]) for r in recs}) != 1:
+                failures.append("ranks differ in the eval step's metrics")
+            for r in recs:
+                MAIN_PATH_LAUNCHES.update(r["launches"])
+                if r["launches"].get("mel_frontend_f32", 0) < 1 or r["launches"].get("mel_frontend_bf16", 0) < 1:
+                    failures.append(f"rank {r['rank']} launches {r['launches']}")
+            log(f"{what}: slices of {len(split)} split leaves on each rank equal to the gathered state's "
+                f"({'no' if not any('slice' in f for f in failures) else 'a'} mismatch), replicated leaves equal "
+                f"on every rank; tp_f32.ckpt ({os.path.getsize(tp_ckpt) / 1e6:.1f} MB) → EmbeddingExtractor, "
+                f"{TP_EMBED_WINDOWS} windows: min cosine {emb_cos:.7f} to the one-process checkpoint's "
+                f"(>= 0.9999); eval {recs[0]['eval']}; launches by rank {[r['launches'] for r in recs]}; "
+                f"the whole launch {wall:.1f} s")
+            dp_params = sum(t.numel() for t in ref["f32"][1].values())
+            log(f"{what}: parameter bytes a rank {[r['param_bytes'] for r in recs]}, Adam bytes a rank "
+                f"{[r['adam_bytes'] for r in recs]}; pure data parallelism holds {4 * dp_params} and "
+                f"{8 * dp_params + 4 * len(ref['f32'][1])} ({recs[0]['param_bytes'] / (4 * dp_params):.4f}x "
+                f"of the parameters)")
+            if failures:
+                raise SystemExit(f"{what}: {failures}")
+            # ms a step at 64 rows a data replica: TP, then pure data parallelism on the same ranks.
+            times = {}
+            for m in (TP_MODEL_AXIS, 1):
+                run_ranks(nproc, ["time", work, "--model-axis", str(m), "--batch-per-rank", str(DDP_TIMING_BATCH),
+                                  "--reps", "5"], timeout=300, cards=cards)
+                with open(os.path.join(work, f"time_{nproc}_m{m}.json")) as f:
+                    times[m] = json.load(f)
+            for name in ("f32", "bf16"):
+                tp_r, dp_r = times[TP_MODEL_AXIS][name], times[1][name]
+                log(f"{what}: {name} step, {DDP_TIMING_BATCH} rows a data replica ({DDP_TIMING_BATCH * data} a "
+                    f"step under TP, {DDP_TIMING_BATCH * nproc} under pure data parallelism on the same "
+                    f"{nproc} ranks): TP median {tp_r['median_ms']:.3f} ms (min {tp_r['min_ms']:.3f}, max "
+                    f"{tp_r['max_ms']:.3f}; {DDP_TIMING_BATCH * data * 1e3 / tp_r['median_ms']:.1f} pairs/s), "
+                    f"pure data parallelism median {dp_r['median_ms']:.3f} ms (min {dp_r['min_ms']:.3f}, max "
+                    f"{dp_r['max_ms']:.3f}; {DDP_TIMING_BATCH * nproc * 1e3 / dp_r['median_ms']:.1f} pairs/s); "
+                    f"parameter bytes a rank {tp_r['param_bytes']} / {dp_r['param_bytes']}; 5 steps after 2; on "
+                    + smi_line())
     finally:
         tmp.cleanup()
 
@@ -2544,6 +2692,7 @@ def main() -> int:
     phase_int8(dev)
     corpus_split = phase_corpus(dev)
     phase_ddp(dev)
+    phase_tp(dev)
     phase_vggish(dev)
     phase_classify(dev, corpus_split)
 

@@ -12,11 +12,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .towers import HeInit, ieee_fp32
+from .towers import HeInit, _CopyToModel, _ReduceFromModel, ieee_fp32, model_split
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """x @ Wᵀ + b in `dtype`. A row-split layer (``parallel/tp.py``) takes
+    its block of the replicated input's columns (whose gradient
+    ``_CopyToModel`` sums over the model group), sums the partial products
+    over the group in f32 and adds the bias once."""
+    split = model_split(layer)
+    if split is None:
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    k = layer.weight.shape[1]
+    x = _CopyToModel.apply(x, split.group)[:, split.index * k:(split.index + 1) * k]
+    y = _ReduceFromModel.apply(F.linear(x.to(dtype), layer.weight.to(dtype)).float(), split.group)
+    return (y + layer.bias.float()).to(dtype)
 
 
 class AVCModel(HeInit):

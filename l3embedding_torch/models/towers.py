@@ -28,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -38,9 +39,33 @@ import torch.nn.functional as F
 from ..ops.frontend import MelConfig, SpectrogramConfig, l3_log_norm
 from ..ops.mel_kernel import melspectrogram_fused
 from ..ops.spec_kernel import spectrogram_fused
+from ..parallel.distributed import comm_device
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
+
+
+@dataclass(frozen=True)
+class ModelSplit:
+    """A layer split over the mesh's model group (``parallel/tp.py`` sets it
+    as the module's ``model_split``): "column" (output channels split, the
+    input replicated), "gather" (a column layer whose channels are gathered
+    back after it), "row" (input channels split, the output summed)."""
+
+    kind: str
+    group: object
+    index: int  # this rank's model index
+
+
+def model_split(layer: nn.Module) -> ModelSplit | None:
+    return vars(layer).get("model_split")
+
+
+def _conv_local(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+    if dtype == torch.float32 and torch.is_grad_enabled() and conv.bias.requires_grad:
+        return F.conv2d(x.to(dtype), w, None, padding=conv.padding) + b.view(1, -1, 1, 1)
+    return F.conv2d(x.to(dtype), w, b, padding=conv.padding)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -50,11 +75,75 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     accumulator over every output position, and for a bias that feeds a
     train-mode BN (zero gradient but for rounding) it left 1.7e-2 of the
     BN's bias gradient at 8 tiny_L3 rows, against 3e-14 in a float64 step
-    and 1.3e-4 in JAX."""
-    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
-    if dtype == torch.float32 and torch.is_grad_enabled() and conv.bias.requires_grad:
-        return F.conv2d(x.to(dtype), w, None, padding=conv.padding) + b.view(1, -1, 1, 1)
-    return F.conv2d(x.to(dtype), w, b, padding=conv.padding)
+    and 1.3e-4 in JAX.
+
+    A conv split over the model group (``model_split``) computes this
+    rank's slice: a column or gather conv takes its replicated input
+    through ``_CopyToModel`` and gives its output channels (gathered back
+    by ``_GatherFromModel``); a row conv's partial sum over its input
+    channels is summed over the group in f32, the bias added once and the
+    result rounded to `dtype` once."""
+    split = model_split(conv)
+    if split is None:
+        return _conv_local(conv, x, dtype)
+    if split.kind == "row":
+        y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, padding=conv.padding)
+        y = _ReduceFromModel.apply(y.float(), split.group)
+        return (y + conv.bias.float().view(1, -1, 1, 1)).to(dtype)
+    y = _conv_local(conv, _CopyToModel.apply(x, split.group), dtype)
+    if split.kind == "gather":
+        y = _GatherFromModel.apply(y, split.group)
+    return y
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input's gradient over the
+    model group, in f32 (each rank's split layer gives only its channels'
+    share of it)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.float().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.to(grad.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum of the ranks' partial products over the model group; the
+    backward is the identity (each rank's partial product takes the whole
+    gradient). Unlike ``_AllReduceSum``, whose backward sums again."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' channel blocks (dim 1) concatenated in model-index order;
+    the backward keeps this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.block = slice(dist.get_rank(group) * t.shape[1], (dist.get_rank(group) + 1) * t.shape[1])
+        local = t.detach().contiguous().to(comm_device(group))
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        return torch.cat(parts, 1).to(t.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:, ctx.block], None
 
 
 # The process group that train-mode BatchNorm takes its batch statistics

@@ -1,4 +1,4 @@
-"""Process-group set-up for data-parallel training on several cards (port of
+"""Process-group set-up for training on several cards (port of
 ``l3embedding_tpu/parallel/distributed.py``).
 
 JAX drives every device of a host from one process; the port runs one
@@ -105,18 +105,14 @@ def rank() -> int:
 
 
 def data_group(model_axis: int = 1):
-    """The group the data-parallel steps reduce over: the whole job when it
-    has more than one process, else None (the one-device step). The port
-    runs pure data parallelism (JAX's mesh with a ``model`` axis of 1): a
-    model axis raises."""
-    if model_axis != 1:
-        raise NotImplementedError(
-            f"model_axis={model_axis}: tensor parallelism over the mesh's model axis "
-            "(ROADMAP.md Queue 1 item 10) is not ported"
-        )
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        return dist.group.WORLD
-    return None
+    """The group the data-parallel steps reduce over: the data group of
+    ``create_mesh(model_axis)`` (the whole job at model_axis=1, with no new
+    group), or None when the data axis has one rank (one process, or every
+    rank on the model axis). With model_axis > 1 every rank calls it, as
+    ``create_mesh``."""
+    from .mesh import create_mesh
+
+    return create_mesh(model_axis).data_group
 
 
 def local_device(device: str | torch.device = "cuda") -> torch.device:

@@ -16,7 +16,10 @@ in optax.adam's layout, ``compat/to_jax.py``), ``save_variables`` the
 weights alone. Files appear atomically (tmp + rename). Under data
 parallelism the state is replicated and the chief (rank 0) writes it;
 ``load_state`` reads the file on every rank, so a checkpoint does not
-depend on how many ranks wrote or read it.
+depend on how many ranks wrote or read it. Under tensor parallelism
+(``parallel/tp.py``) ``state_tree`` gathers the split leaves over the
+model group, so every rank calls ``save_state`` / ``save_variables`` and
+the chief writes the whole tree; loading keeps this rank's slices.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 
 from ..compat.from_jax import adam_from_jax, avc_from_jax_variables
 from ..compat.to_jax import adam_to_jax, avc_to_jax_variables
+from ..parallel.distributed import rank
+from ..parallel.tp import gather_tree, slice_tree, tp_mesh
 
 LATEST = "model_latest.ckpt"
 BEST_VALID_ACC = "model_best_valid_accuracy.ckpt"
@@ -109,20 +114,30 @@ def _write_atomic(path: str, blob: bytes) -> None:
 
 def state_tree(state) -> dict:
     """A TrainState → host copies {step, params, batch_stats, opt_state} in
-    flax's layout. The copies are taken now: the next step updates the
-    model and the optimiser in place."""
+    flax's layout, whole: the split leaves of a tensor-parallel state are
+    gathered over its model group, whose every rank calls this. The copies
+    are taken now: the next step updates the model and the optimiser in
+    place."""
     variables = avc_to_jax_variables(state.model, state.model_type)
-    return {
+    return gather_tree({
         "step": np.asarray(state.step, np.int32),
         "params": variables["params"],
         "batch_stats": variables["batch_stats"],
         "opt_state": adam_to_jax(state.model, state.model_type, state.optimizer),
-    }
+    }, tp_mesh(state.model))
+
+
+def _writes(model) -> bool:
+    """A tensor-parallel model's tree is written by the job's chief alone."""
+    return tp_mesh(model) is None or rank() == 0
 
 
 def save_state(path: str, state) -> None:
-    """Atomically write {step, params, batch_stats, opt_state}."""
-    _write_atomic(path, to_bytes(state_tree(state)))
+    """Atomically write {step, params, batch_stats, opt_state}. Under
+    tensor parallelism every rank calls it and rank 0 writes."""
+    tree = state_tree(state)
+    if _writes(state.model):
+        _write_atomic(path, to_bytes(tree))
 
 
 def load_state(path: str, state):
@@ -134,8 +149,10 @@ def load_state(path: str, state):
 
 def load_state_tree(tree: dict, state):
     """Put {step, params, batch_stats, opt_state} in flax's layout (as
-    ``state_tree`` makes it) into `state`, in place; returns it."""
+    ``state_tree`` makes it) into `state`, in place (this rank's slices of
+    the split leaves, for a tensor-parallel state); returns it."""
     model = state.model
+    tree = slice_tree(tree, tp_mesh(model))
     device = next(model.parameters()).device
     sd = avc_from_jax_variables(tree, state.model_type)
     model.load_state_dict({k: v.to(device) for k, v in sd.items()})
@@ -152,8 +169,11 @@ def save_tree(path: str, tree: dict) -> None:
 
 
 def save_variables(path: str, model: torch.nn.Module, model_type: str) -> None:
-    """Weights-only snapshot {params, batch_stats} (for extraction)."""
-    save_tree(path, avc_to_jax_variables(model, model_type))
+    """Weights-only snapshot {params, batch_stats} (for extraction); under
+    tensor parallelism every rank calls it and rank 0 writes."""
+    tree = gather_tree(avc_to_jax_variables(model, model_type), tp_mesh(model))
+    if _writes(model):
+        save_tree(path, tree)
 
 
 class AsyncCheckpointWriter:

@@ -50,6 +50,7 @@ from ..parallel import (
     shard_batch_local,
     world_size,
 )
+from ..parallel.tp import tp_mesh
 from ..utils.log import init_console_logger, init_file_logger
 from ..utils.tracker import JSONLTracker, NullTracker
 from . import checkpoints
@@ -579,6 +580,9 @@ def run_epochs(
     steps after the first rank raised it; only the `chief` writes
     checkpoints, markers, history files and traces.
     """
+    if tp_mesh(state.model) is not None:
+        raise NotImplementedError("run_epochs writes checkpoints on the chief alone; a tensor-parallel "
+                                  "state is gathered by every rank (checkpoints.save_state)")
     tracker = tracker or NullTracker()
     device = next(state.model.parameters()).device
     history = {"acc": [], "loss": [], "val_acc": [], "val_loss": []}

@@ -40,6 +40,19 @@ the global batch as JAX's max over a sharded batch does
 (``ops/frontend.batch_global_db``): the train step's BN group (none under
 ``per_replica``, whose replicas see their rows alone, as under JAX's
 shard_map), the eval step's group.
+
+Tensor parallelism (``group`` a ``parallel.ProcessMesh`` whose model axis
+has several ranks, the state split by ``parallel.tp.tp_shard_state``): the
+split layers run their own collectives over the model group
+(``models/towers._conv``, ``models/avc._dense``); everything above
+(BatchNorm moments, gradients, metrics, microbatches, the dB reference) is
+reduced over the mesh's data group alone, for split and replicated leaves
+alike, since the model ranks of one data index hold the same rows.
+``l2_penalty`` sums the split kernels' squares over the model group. The
+replicated parameters' gradients, which each rank of a model group computes
+alone, are taken from its first rank (``_share_replicated_grads``), so
+that the replicas stay equal bit for bit. ``per_replica`` refuses a model
+axis, as JAX's does.
 """
 
 from __future__ import annotations
@@ -49,9 +62,11 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.towers import ieee_fp32, sync_batch_norm
+from ..models.towers import _ReduceFromModel, ieee_fp32, model_split, sync_batch_norm
 from ..ops.frontend import batch_global_db
 from ..parallel.distributed import comm_device
+from ..parallel.mesh import ProcessMesh
+from ..parallel.tp import split_leaves
 from .state import TrainState
 
 WEIGHT_DECAY = 1e-5
@@ -68,9 +83,16 @@ def preprocess_batch(video: torch.Tensor, audio: torch.Tensor):
 
 def l2_penalty(model: nn.Module) -> torch.Tensor:
     """1e-5 · Σ w² over every nn.Conv2d and nn.Linear weight (not biases,
-    not BatchNorm scales), in f32."""
-    kernels = [m.weight for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
-    return WEIGHT_DECAY * sum(torch.sum(torch.square(w.float())) for w in kernels)
+    not BatchNorm scales), in f32. The squares of kernels split over the
+    model group are summed over it first (each slice's gradient stays its
+    own)."""
+    layers = [m for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+    total = sum(torch.sum(torch.square(m.weight.float())) for m in layers if model_split(m) is None)
+    split = [m for m in layers if model_split(m) is not None]
+    if split:
+        part = sum(torch.sum(torch.square(m.weight.float())) for m in split)
+        total = total + _ReduceFromModel.apply(part, model_split(split[0]).group)
+    return WEIGHT_DECAY * total
 
 
 def _ce_acc(logits: torch.Tensor, labels: torch.Tensor):
@@ -92,6 +114,16 @@ def _f32_step(state: TrainState):
 
 def _world(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
+
+
+def _data_group(group, bn_mode: str = "sync"):
+    """The group a step reduces over: a mesh's data group (a model axis
+    refuses per_replica), or `group` itself; None for a group of one."""
+    if isinstance(group, ProcessMesh):
+        if group.model > 1 and bn_mode == "per_replica":
+            raise ValueError("per_replica BN supports data-parallel meshes only")
+        group = group.data_group
+    return None if _world(group) == 1 else group
 
 
 def _all_reduce_mean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
@@ -130,6 +162,21 @@ def _microbatch_shares(batch: dict, accum_steps: int, group) -> dict:
     return out
 
 
+def _share_replicated_grads(state: TrainState, mesh: ProcessMesh) -> None:
+    """Under a model axis: the replicated parameters' gradients of the
+    model group's first rank on every rank of it, in one broadcast. Each
+    rank computes them alone, and a backward that is not deterministic
+    (cuDNN's) would let the replicas drift apart bit by bit."""
+    split = split_leaves(state.model_type)
+    grads = [p.grad for n, p in state.model.named_parameters() if n not in split]
+    flat = torch.cat([g.reshape(-1) for g in grads]).to(comm_device(mesh.model_group))
+    dist.broadcast(flat, src=mesh.data_index * mesh.model, group=mesh.model_group)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view(g.shape))
+        i += g.numel()
+
+
 def _running_stats(model: nn.Module) -> list[torch.Tensor]:
     return [b for name, b in model.named_buffers() if "running_" in name]
 
@@ -160,8 +207,10 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     the mean cross-entropy and accuracy with reg_loss the L2 term of the
     parameters before the step.
 
-    group: a process group (``parallel.data_group()``); None or a group of
-    one is the one-device step. bn_mode: module docstring.
+    group: a process group (``parallel.data_group()``) or a
+    ``parallel.ProcessMesh`` (``create_mesh``; its data group, and a state
+    split over its model axis); None or a group of one is the one-device
+    step. bn_mode: module docstring.
     """
     if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
@@ -169,8 +218,8 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if bn_mode == "per_replica" and accum_steps > 1:
         raise NotImplementedError("per_replica BN with gradient accumulation")
-    if _world(group) == 1:
-        group = None
+    mesh = group if isinstance(group, ProcessMesh) else None
+    group = _data_group(group, bn_mode)
     bn_group = group if bn_mode == "sync" else None
 
     def train_step(state: TrainState, batch: dict):
@@ -215,6 +264,8 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
                     p.grad.copy_(g)
                 if bn_mode == "per_replica":
                     _average_running_stats(model, group)
+            if mesh is not None and mesh.model > 1:
+                _share_replicated_grads(state, mesh)
             opt.step()
         state.step += 1
         return state, {"loss": ce, "acc": acc, "reg_loss": reg}
@@ -225,9 +276,9 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
 def make_eval_step(group=None):
     """→ fn(state, batch) → {"loss": cross-entropy + L2, "acc"}, with the
     BatchNorms on their running statistics; no update. Under a group of
-    several ranks the metrics are averaged over them."""
-    if _world(group) == 1:
-        group = None
+    several ranks (a mesh: its data group) the metrics are averaged over
+    them."""
+    group = _data_group(group)
 
     def eval_step(state: TrainState, batch: dict):
         model = state.model

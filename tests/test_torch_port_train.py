@@ -201,14 +201,16 @@ def check_metrics(ours, theirs, rel):
         assert abs(ours[k] - theirs[k]) <= rel * max(abs(theirs[k]), 1e-12), (k, ours[k], theirs[k])
 
 
-def check_step(model_type, ours, theirs, grad_gate=0.99999):
+def check_step(model_type, ours, theirs, grad_gate=0.99999, old_params=None, lr=LR):
     """Every gradient leaf, new parameter, new batch statistic and Adam
     first moment of two steps from the same state (module docstring's
-    gates); → the worst (cosine, max |Δ|, leaf) per kind, for the report."""
+    gates; the state's parameters ``variables(model_type)``'s unless
+    old_params is given, its learning rate lr); → the worst (cosine, max
+    |Δ|, leaf) per kind, for the report."""
     (o_trees, _, o_grads), (t_trees, _, t_grads) = ours, theirs
     noise = bn_fed_paths(model_type)
     worst = {}
-    old = dict(flat(variables(model_type)["params"]))
+    old = dict(flat(old_params if old_params is not None else variables(model_type)["params"]))
     for kind, o, t, gate in (
         ("grad", o_grads, t_grads, grad_gate),
         ("mu", dict(flat(o_trees["mu"])), dict(flat(t_trees["mu"])), grad_gate),
@@ -227,8 +229,8 @@ def check_step(model_type, ours, theirs, grad_gate=0.99999):
                     assert ratio <= 1e-3, (kind, path)
                 continue
             if path in noise and kind == "param":
-                assert np.abs(a - old[path]).max() <= LR * (1 + 1e-3), path
-                assert np.abs(b - old[path]).max() <= LR * (1 + 1e-3), path
+                assert np.abs(a - old[path]).max() <= lr * (1 + 1e-3), path
+                assert np.abs(b - old[path]).max() <= lr * (1 + 1e-3), path
                 continue
             c = cosine(a, b)
             rows.append((c, float(np.abs(a - b).max()), "/".join(path)))
