@@ -35,6 +35,7 @@ import torch
 from ..compat.from_jax import from_jax_variables
 from ..models.embedding import audio_embedding_fn
 from ..training.checkpoints import load_variables
+from ..utils import trace
 
 BUCKETS = (16, 32, 64, 128, 256, 512)
 INIT_SEED = 0
@@ -217,24 +218,30 @@ class EmbeddingExtractor:
 
     def _forward_rows(self, chunks: list, n: int) -> EmbeddingRows:
         """One (rows, 48000) window tensor per replica → the first n rows of
-        their embeddings, copied back into one host tensor."""
+        their embeddings, copied back into one host tensor. Counts the call's
+        real rows and the rows the towers compute (``rows``, ``bucket_rows``
+        of the ``extract.call`` span)."""
+        if trace.on():
+            trace.count("extract.call", rows=n, bucket_rows=sum(x.shape[0] for x in chunks))
         outs = []
-        for i, x in enumerate(chunks):
-            with self._on_stream(i):
-                outs.append(self.models[i](x[:, None, :]))  # (B, 1, 48000) reference input convention
+        with trace.span("extract.forward"):
+            for i, x in enumerate(chunks):
+                with self._on_stream(i):
+                    outs.append(self.models[i](x[:, None, :]))  # (B, 1, 48000) reference input convention
         if all(out.device.type == "cpu" for out in outs):
             return EmbeddingRows((outs[0] if len(outs) == 1 else torch.cat(outs))[:n])
-        host = torch.empty((n, outs[0].shape[1]), dtype=torch.float32, pin_memory=True)
-        events, start = [], 0
-        for i, out in enumerate(outs):
-            rows = min(out.shape[0], n - start)
-            if rows > 0:
-                with self._on_stream(i):
-                    host[start : start + rows].copy_(out[:rows], non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(self._streams[i])
-                    events.append(event)
-            start += out.shape[0]
+        with trace.span("extract.download"):
+            host = torch.empty((n, outs[0].shape[1]), dtype=torch.float32, pin_memory=True)
+            events, start = [], 0
+            for i, out in enumerate(outs):
+                rows = min(out.shape[0], n - start)
+                if rows > 0:
+                    with self._on_stream(i):
+                        host[start : start + rows].copy_(out[:rows], non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record(self._streams[i])
+                        events.append(event)
+                start += out.shape[0]
         return EmbeddingRows(host, events)
 
     def _embed_device_framed(self, audio: np.ndarray, hop_size: float) -> EmbeddingRows:
@@ -259,11 +266,12 @@ class EmbeddingExtractor:
         need = (bucket - 1) * hop_length + sr
         m = min(len(audio), need)
         with self._on_stream(0):
-            buf = torch.zeros(need, dtype=torch.float32, device=dev)
-            self._upload(buf[:m], np.ascontiguousarray(audio[:m], dtype=np.float32), 0)
-            windows = buf.unfold(0, sr, hop_length)  # (bucket, sr) view
-            keep = (torch.arange(bucket, device=dev) < n)[:, None]
-            windows = torch.where(keep, windows, buf.new_zeros(())).contiguous()
+            with trace.span("extract.upload"):
+                buf = torch.zeros(need, dtype=torch.float32, device=dev)
+                self._upload(buf[:m], np.ascontiguousarray(audio[:m], dtype=np.float32), 0)
+                windows = buf.unfold(0, sr, hop_length)  # (bucket, sr) view
+                keep = (torch.arange(bucket, device=dev) < n)[:, None]
+                windows = torch.where(keep, windows, buf.new_zeros(())).contiguous()
             return self._forward_rows([windows], n)
 
     def _bucket_size(self, n: int) -> int:
@@ -277,20 +285,23 @@ class EmbeddingExtractor:
 
         The bucket's zero rows are made on the device; only the N real rows
         are uploaded. With `devices` the bucket is split over them (under
-        db_batch_global it runs whole on the first)."""
-        windows = np.ascontiguousarray(windows, dtype=np.float32)
-        n, width = windows.shape
-        k = len(self._replicas)
-        chunk = self._bucket_size(n) // k
-        chunks = []
-        for i, dev in enumerate(self._replicas):
-            real = windows[i * chunk : (i + 1) * chunk]
-            with self._on_stream(i):
-                x = torch.zeros((chunk, width), dtype=torch.float32, device=dev)
-                if len(real):
-                    self._upload(x[: len(real)], real, i)
-            chunks.append(x)
-        return self._forward_rows(chunks, n)
+        db_batch_global it runs whole on the first). One ``extract.call``
+        span while tracing is on."""
+        with trace.span("extract.call", self._streams[0]):
+            with trace.span("extract.upload"):
+                windows = np.ascontiguousarray(windows, dtype=np.float32)
+                n, width = windows.shape
+                k = len(self._replicas)
+                chunk = self._bucket_size(n) // k
+                chunks = []
+                for i, dev in enumerate(self._replicas):
+                    real = windows[i * chunk : (i + 1) * chunk]
+                    with self._on_stream(i):
+                        x = torch.zeros((chunk, width), dtype=torch.float32, device=dev)
+                        if len(real):
+                            self._upload(x[: len(real)], real, i)
+                    chunks.append(x)
+            return self._forward_rows(chunks, n)
 
     def embed_windows(self, windows) -> np.ndarray:
         """(N, frame_length) float32 → (N, dim) embeddings."""
@@ -299,14 +310,18 @@ class EmbeddingExtractor:
     def embed_audio_async(self, audio: np.ndarray, hop_size: float = 0.1,
                           device_framing: bool | None = None) -> EmbeddingRows:
         """embed_audio without the sync: framing (on the host or the
-        device) and dispatch happen now, ``result()`` materialises."""
-        audio = np.asarray(audio, dtype=np.float32)
-        use_device = self.device_framing if device_framing is None else device_framing
-        if use_device and self.devices is None and len(audio) >= self.sr:
-            # Clips shorter than one window take the host path: they need
-            # the centered zero-padding and are one window anyway.
-            return self._embed_device_framed(audio, hop_size)
-        return self.embed_windows_async(frame_uniform(audio, self.sr, hop_size))
+        device) and dispatch happen now, ``result()`` materialises. One
+        ``extract.call`` span while tracing is on."""
+        with trace.span("extract.call", self._streams[0]):
+            audio = np.asarray(audio, dtype=np.float32)
+            use_device = self.device_framing if device_framing is None else device_framing
+            if use_device and self.devices is None and len(audio) >= self.sr:
+                # Clips shorter than one window take the host path: they need
+                # the centered zero-padding and are one window anyway.
+                return self._embed_device_framed(audio, hop_size)
+            with trace.span("extract.upload"):
+                windows = frame_uniform(audio, self.sr, hop_size)
+            return self.embed_windows_async(windows)
 
     def embed_audio(self, audio: np.ndarray, hop_size: float = 0.1,
                     device_framing: bool | None = None) -> np.ndarray:

@@ -40,6 +40,7 @@ from ..ops.frontend import MelConfig, SpectrogramConfig, l3_log_norm
 from ..ops.mel_kernel import melspectrogram_fused
 from ..ops.spec_kernel import spectrogram_fused
 from ..parallel.distributed import comm_device
+from ..utils import trace
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
@@ -203,7 +204,24 @@ def _batch_moments(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
         train: bool = False) -> torch.Tensor:
-    """BatchNorm computed in f32, output rounded to `dtype`.
+    """BatchNorm computed in f32, output rounded to `dtype` (``_bn_f32``).
+
+    While tracing is on (``utils/trace.py``) each call is a ``tower.bn``
+    span, its casts in and out included, and in train mode its backward is
+    one too: from the output's gradient to the input's (for an input that
+    takes no gradient, to the per-channel scale's; the scale's and the
+    bias's last (C,)-sized kernels fall just outside)."""
+    with trace.span("tower.bn", x.device):
+        y, scale = _bn_f32(bn, x, train)
+        y = y.to(dtype)
+    if train:
+        trace.backward_span("tower.bn", y, x if x.requires_grad else scale)
+    return y
+
+
+def _bn_f32(bn: nn.BatchNorm2d, x: torch.Tensor,
+            train: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(BatchNorm of x in f32, the per-channel scale of train mode or None).
 
     train=True is flax's train mode, written out in tensor ops: the batch
     mean and the biased batch variance as E[x²] − E[x]² clipped at 0
@@ -229,7 +247,7 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
             training=False, eps=bn.eps,
         )
-        return y.to(dtype)
+        return y, None
     group = _BN_GROUP.get()
     if group is None:
         dims = (0, 2, 3)
@@ -243,7 +261,7 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
     shape = (1, -1, 1, 1)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
-    return y.to(dtype)
+    return y, mul
 
 
 def same_max_pool(x: torch.Tensor, pool: Sequence[int]) -> torch.Tensor:
@@ -406,17 +424,19 @@ class L3AudioTower(_L3Trunk):
         self.db_batch_global = db_batch_global
 
     def frontend(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 1, n) or (B, n) PCM → (B, F, T, 1) front-end features, f32."""
-        if x.dim() == 3:
-            x = x[:, 0, :]
-        x = x.float().contiguous()
-        fast = self.dtype == torch.bfloat16
-        db_ps = not self.db_batch_global
-        if self.frontend_kind == "mel":
-            return melspectrogram_fused(x, MelConfig(n_mels=self.n_mels, db_per_sample=db_ps), fast)
-        if self.frontend_kind == "linear":
-            return l3_log_norm(spectrogram_fused(x, SpectrogramConfig(), fast))
-        return spectrogram_fused(x, SpectrogramConfig(decibel=True, db_per_sample=db_ps), fast)
+        """(B, 1, n) or (B, n) PCM → (B, F, T, 1) front-end features, f32;
+        a ``tower.frontend`` span while tracing is on."""
+        with trace.span("tower.frontend"):
+            if x.dim() == 3:
+                x = x[:, 0, :]
+            x = x.float().contiguous()
+            fast = self.dtype == torch.bfloat16
+            db_ps = not self.db_batch_global
+            if self.frontend_kind == "mel":
+                return melspectrogram_fused(x, MelConfig(n_mels=self.n_mels, db_per_sample=db_ps), fast)
+            if self.frontend_kind == "linear":
+                return l3_log_norm(spectrogram_fused(x, SpectrogramConfig(), fast))
+            return spectrogram_fused(x, SpectrogramConfig(decibel=True, db_per_sample=db_ps), fast)
 
     def _input(self, x):
         return self.frontend(x).permute(0, 3, 1, 2)

@@ -51,6 +51,7 @@ from ..parallel import (
     world_size,
 )
 from ..parallel.tp import tp_mesh
+from ..utils import trace
 from ..utils.log import init_console_logger, init_file_logger
 from ..utils.tracker import JSONLTracker, NullTracker
 from . import checkpoints
@@ -264,7 +265,8 @@ def train(
     preempt_after_steps: behave as if SIGTERM arrived after N train steps
       of this run (deterministic preemption tests).
     profile_steps: a torch.profiler trace of the first N train steps into
-      ``<model_dir>/profile``.
+      ``<model_dir>/profile``, with the program's spans (``utils/trace.py``:
+      ``train.data_wait``, the step's phases, each BatchNorm).
     """
     params = dict(locals())
     guard = _PreemptionGuard(enabled=handle_preemption)
@@ -676,7 +678,8 @@ def run_epochs(
             max_inflight = max(2, 2 * prefetch_batches)
             for step_in_epoch in range(steps_this_epoch):
                 t0 = time.perf_counter()
-                batch = next(train_pipe)
+                with trace.span("train.data_wait"):
+                    batch = next(train_pipe)
                 data_wait_times.append(time.perf_counter() - t0)
                 state, metrics = train_step(state, batch)
                 step_loss = metrics["loss"] + metrics["reg_loss"]

@@ -67,6 +67,7 @@ from ..ops.frontend import batch_global_db
 from ..parallel.distributed import comm_device
 from ..parallel.mesh import ProcessMesh
 from ..parallel.tp import split_leaves
+from ..utils import trace
 from .state import TrainState
 
 WEIGHT_DECAY = 1e-5
@@ -211,6 +212,15 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     ``parallel.ProcessMesh`` (``create_mesh``; its data group, and a state
     split over its model axis); None or a group of one is the one-device
     step. bn_mode: module docstring.
+
+    While tracing is on (``utils/trace.py``) a step is one ``train.call``
+    span (timed on the device) holding ``train.forward``
+    (the inputs' conversion through the loss; under accumulation one a
+    microbatch), ``train.backward`` (one a microbatch), ``train.exchange``
+    (with a group: the microbatch rows' gather, the all-reduce of the
+    gradients and metrics, per_replica's running statistics, the
+    replicated gradients' broadcast) and ``train.update`` (Adam's step;
+    under accumulation also the gradients' division).
     """
     if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
@@ -223,50 +233,66 @@ def make_train_step(accum_steps: int = 1, bn_mode: str = "sync", group=None):
     bn_group = group if bn_mode == "sync" else None
 
     def train_step(state: TrainState, batch: dict):
+        device = next(state.model.parameters()).device
+        with trace.span("train.call", device):
+            return _step(state, batch, device)
+
+    def _step(state: TrainState, batch: dict, device: torch.device):
         model, opt = state.model, state.optimizer
-        device = next(model.parameters()).device
         if group is not None and accum_steps > 1:
-            batch = _microbatch_shares(batch, accum_steps, group)
-        video, audio, labels = _inputs(batch, device)
-        b = labels.shape[0]
-        if b % accum_steps:
-            raise ValueError(f"batch size {b} not divisible by accum_steps {accum_steps}")
-        mb = b // accum_steps
-        opt.zero_grad(set_to_none=True)
+            with trace.span("train.exchange"):
+                batch = _microbatch_shares(batch, accum_steps, group)
         with _f32_step(state):
+            with trace.span("train.forward"):
+                video, audio, labels = _inputs(batch, device)
+                b = labels.shape[0]
+                if b % accum_steps:
+                    raise ValueError(f"batch size {b} not divisible by accum_steps {accum_steps}")
+                mb = b // accum_steps
+                opt.zero_grad(set_to_none=True)
+                if accum_steps == 1:
+                    with sync_batch_norm(bn_group), batch_global_db(bn_group):
+                        logits = model(video, audio, train=True)
+                    ce, acc = _ce_acc(logits, labels)
+                    loss = ce + l2_penalty(model)
+                else:
+                    with torch.no_grad():
+                        reg = l2_penalty(model)
             if accum_steps == 1:
-                with sync_batch_norm(bn_group), batch_global_db(bn_group):
-                    logits = model(video, audio, train=True)
-                ce, acc = _ce_acc(logits, labels)
-                loss = ce + l2_penalty(model)
-                loss.backward()
+                with trace.span("train.backward"):
+                    loss.backward()
                 reg = (loss - ce).detach()
             else:
-                with torch.no_grad():
-                    reg = l2_penalty(model)
                 ces, accs = [], []
                 for i in range(accum_steps):
                     sl = slice(i * mb, (i + 1) * mb)
-                    with sync_batch_norm(bn_group), batch_global_db(bn_group):
-                        logits = model(video[sl], audio[sl], train=True)
-                    ce_i, acc_i = _ce_acc(logits, labels[sl])
-                    (ce_i + l2_penalty(model)).backward()
+                    with trace.span("train.forward"):
+                        with sync_batch_norm(bn_group), batch_global_db(bn_group):
+                            logits = model(video[sl], audio[sl], train=True)
+                        ce_i, acc_i = _ce_acc(logits, labels[sl])
+                        loss_i = ce_i + l2_penalty(model)
+                    with trace.span("train.backward"):
+                        loss_i.backward()
                     ces.append(ce_i.detach())
                     accs.append(acc_i)
-                for p in model.parameters():
-                    p.grad.div_(accum_steps)
+                with trace.span("train.update"):
+                    for p in model.parameters():
+                        p.grad.div_(accum_steps)
                 ce, acc = torch.stack(ces).mean(), torch.stack(accs).mean()
             ce = ce.detach()
             if group is not None:
-                params = list(model.parameters())
-                *grads, ce, acc, reg = _all_reduce_mean([p.grad for p in params] + [ce, acc, reg], group)
-                for p, g in zip(params, grads):
-                    p.grad.copy_(g)
-                if bn_mode == "per_replica":
-                    _average_running_stats(model, group)
+                with trace.span("train.exchange"):
+                    params = list(model.parameters())
+                    *grads, ce, acc, reg = _all_reduce_mean([p.grad for p in params] + [ce, acc, reg], group)
+                    for p, g in zip(params, grads):
+                        p.grad.copy_(g)
+                    if bn_mode == "per_replica":
+                        _average_running_stats(model, group)
             if mesh is not None and mesh.model > 1:
-                _share_replicated_grads(state, mesh)
-            opt.step()
+                with trace.span("train.exchange"):
+                    _share_replicated_grads(state, mesh)
+            with trace.span("train.update"):
+                opt.step()
         state.step += 1
         return state, {"loss": ce, "acc": acc, "reg_loss": reg}
 

@@ -333,6 +333,21 @@ def test_eval_step_averages_over_ranks(job):
     assert float(outs[0]["acc"]) == float(want["acc"])
 
 
+def test_traced_steps_mark_the_exchange(job):
+    """Traced on 2 ranks: the rows' gather for the microbatches, the
+    gradients' all-reduce and per_replica's running statistics are
+    train.exchange spans in the step, beside each microbatch's forward and
+    backward."""
+    for r in range(2):
+        record = json.loads((job / "out" / f"traced_rank{r}.json").read_text())
+        assert record["accum2"] == sorted(
+            ["train.call<None"] + ["train.exchange<train.call"] * 2 + ["train.forward<train.call"] * 3
+            + ["train.backward<train.call"] * 2 + ["train.update<train.call"] * 2)
+        assert record["per_replica"] == sorted(
+            ["train.call<None", "train.exchange<train.call", "train.forward<train.call",
+             "train.backward<train.call", "train.update<train.call"])
+
+
 @pytest.mark.parametrize("fault", FAULTS)
 def test_planted_faults_fail_a_gate(job, jax_steps, fault):
     """Each planted fault fails a gate against the reference it breaks: the

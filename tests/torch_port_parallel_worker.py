@@ -12,7 +12,8 @@ state), the global batches (``batch.npz`` of 4 rows, ``batch8.npz`` of 8,
 2 microbatches, a db_batch_global model, the eval step, and four planted
 faults) as a ``.ckpt`` of the new state and an ``.npz`` of gradients and
 metrics (the sync step's state also as a directory snapshot, ``sync_dir``,
-which both ranks write), then the ``train()`` runs (uninterrupted; preempted on rank 1
+which both ranks write), then a traced step with accumulation and a per_replica one
+(their spans), then the ``train()`` runs (uninterrupted; preempted on rank 1
 alone; resumed) with a JSON record of what each rank saw and wrote. Imports
 no JAX.
 """
@@ -157,6 +158,31 @@ def run_steps(work, out):
     np.savez(os.path.join(out, f"eval_rank{rank()}.npz"), **{k: float(v) for k, v in m.items()})
 
 
+def run_traced(work, out):
+    """A sync step with 2 microbatches and a per_replica step under a CPU
+    profiler: each span but the towers' as "name<parent" (sorted), into
+    ``traced_rank{r}.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from l3embedding_torch.utils import trace
+
+    group = data_group()
+    with np.load(os.path.join(work, "batch8.npz")) as z:
+        batch = shard_batch({k: torch.from_numpy(z[k]) for k in z.files}, group)
+    record = {}
+    for name, kwargs in (("accum2", dict(accum_steps=2)), ("per_replica", dict(bn_mode="per_replica"))):
+        state = fresh_state(work)
+        trace.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            steps.make_train_step(group=group, **kwargs)(state, batch)
+        spans = trace.spans()
+        names = {s.id: s.name for s in spans}
+        record[name] = sorted(f"{s.name}<{names.get(s.parent)}" for s in spans if not s.name.startswith("tower."))
+    trace.clear()
+    with open(os.path.join(out, f"traced_rank{rank()}.json"), "w") as f:
+        json.dump(record, f)
+
+
 # ---------------------------------------------------------------- train()
 
 def run_train(work, out):
@@ -201,6 +227,7 @@ def main():
     out = os.path.join(work, "out")
     os.makedirs(out, exist_ok=True)
     run_steps(work, out)
+    run_traced(work, out)
     run_train(work, out)
     dist.barrier()
     dist.destroy_process_group()
