@@ -1,10 +1,13 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the four
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the five
 kernel sources (mel and linear spectrogram front ends, block-1 conv and
-GEMM probe, the int8 conv) from this checkout, one nvcc each and all at
-once, holds each of the five kernels against its plain PyTorch version
-(the int8 conv at every conv shape of the cnn_L3_melspec2 int8 tower and
-at its three pooled calls; its wgmma kernels' SASS must show integer
-wgmma fed by TMA),
+GEMM probe, the int8 conv, the train-mode BatchNorm) from this checkout,
+one nvcc each and all at once, holds each of the six kernels against its
+plain PyTorch version (the int8 conv at every conv shape of the
+cnn_L3_melspec2 int8 tower and at its three pooled calls; its wgmma
+kernels' SASS must show integer wgmma fed by TMA; the BatchNorm forward
+and backward through its autograd wrapper at every BN call of a bf16 train
+step at 256 pairs and an f32 one at 64, each timed beside its bound, the
+largest also beside torch's F.batch_norm),
 then drives the
 port's paths end to end through their user entry points: embedding
 extraction for all five model types (cnn_L3_melspec2 and cnn_L3_orig at
@@ -74,6 +77,7 @@ from __future__ import annotations
 import copy
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -637,22 +641,162 @@ def phase_int8_kernel(dev) -> dict:
                        shapes=shapes)}
 
 
+# The steps whose train-mode BatchNorms the BN phase checks and times: the
+# train cell's bf16 step at 256 pairs, and the f32 step at BATCH pairs.
+BN_STEPS = {"bf16": (torch.bfloat16, 256), "f32": (torch.float32, BATCH)}
+BN_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def bn_step_calls(dev, dtype, batch: int) -> list[tuple]:
+    """The train-mode BatchNorm calls of one cnn_L3_melspec2 train step in
+    `dtype` at `batch` pairs, in order: (shape, x's dtype, y's dtype,
+    channels-last, x takes a gradient) of each, as ``towers._bn`` hands x to
+    ``bn_train``."""
+    from l3embedding_torch.models import towers
+    from l3embedding_torch.ops import bn_kernel as bk
+
+    calls, real = [], towers.bn_train
+
+    def record(x, weight, bias, running_mean, running_var, eps, momentum, out_dtype, group=None):
+        calls.append((tuple(x.shape), x.dtype, out_dtype, bk.channels_last(x), x.requires_grad))
+        return real(x, weight, bias, running_mean, running_var, eps, momentum, out_dtype, group=group)
+
+    towers.bn_train = record
+    try:
+        one_train_step(dtype, dev, avc_batches(1, batch, seed=41)[0])
+    finally:
+        towers.bn_train = real
+    torch.cuda.empty_cache()
+    return calls
+
+
+def bn_bytes(in_dtype, out_dtype, grad: bool) -> tuple[int, int]:
+    """Bytes an element the kernel moves: forward x twice and y once;
+    backward dy and x once for the sums, and where x takes a gradient once
+    more with dx written."""
+    i, o = torch.finfo(in_dtype).bits // 8, torch.finfo(out_dtype).bits // 8
+    return 2 * i + o, o + i + (o + 2 * i if grad else 0)
+
+
+def phase_bn_kernel(dev) -> dict:
+    """The train-mode BatchNorm kernel (csrc/bn_train.cu) at every BN call
+    of the main path's train steps (BN_STEPS: the shapes, dtypes, layouts
+    and whether x takes a gradient, read off a real step by
+    ``bn_step_calls``): each through ``bn_train`` and autograd's backward,
+    against the plain version (``forward_ref``, ``backward_ref``) on the
+    same tensors — y and dx within one ulp of their dtype (2^-7 in bf16;
+    f32: 1e-5 and 1e-4) of max |ref|, dγ and dβ within 1e-4, the running
+    statistics within 1e-5, y and dx in x's layout — then timed (CUDA
+    events, ``_forward`` and ``_backward``) beside its bound, the bytes of
+    ``bn_bytes`` at 3.35 TB/s. At each step's largest BN (audio block 1)
+    also the plain version, torch's F.batch_norm(training=True) as the
+    yardstick (library_ms; the port never calls it), and the bound at each
+    byte once (bound_once_ms). → {mode: measured} for the kernels line."""
+    import torch.nn.functional as F
+
+    from l3embedding_torch.ops import bn_kernel as bk
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for mode, (dtype, batch) in BN_STEPS.items():
+        calls = bn_step_calls(dev, dtype, batch)
+        if len(calls) != 18:
+            raise SystemExit(f"bn_train: the {mode} step made {len(calls)} train-mode BN calls, not 18")
+        head = max(calls, key=lambda k: math.prod(k[0]))
+        shapes, max_err = [], 0.0
+        for key, count in Counter(calls).items():
+            shape, in_dtype, out_dtype, nhwc, grad = key
+            what = (f"bn_train {mode} step at {batch} pairs, {shape} {BN_DTYPES[in_dtype]} -> "
+                    f"{BN_DTYPES[out_dtype]} {'NHWC' if nhwc else 'NCHW'}{'' if grad else ', no dx'}")
+            fmt = torch.channels_last if nhwc else torch.contiguous_format
+            c = shape[1]
+            x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.4).to(in_dtype).contiguous(memory_format=fmt)
+            dy = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(out_dtype).contiguous(memory_format=fmt)
+            weight = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            bias = 0.05 * torch.randn(c, generator=gen, device=dev)
+            rm, rv, rrm, rrv = torch.zeros(c, device=dev), torch.ones(c, device=dev), torch.zeros(c, device=dev), \
+                torch.ones(c, device=dev)
+            wg, bg, xg = weight.clone().requires_grad_(), bias.clone().requires_grad_(), x.detach().requires_grad_(grad)
+            bk.LAUNCHES.clear()
+            y = bk.bn_train(xg, wg, bg, rm, rv, 1e-3, 0.99, out_dtype)
+            y.backward(dy)
+            ry, rstats = bk.forward_ref(x, weight, bias, rrm, rrv, 1e-3, 0.99, out_dtype)
+            rdx, rdw, rdb = bk.backward_ref(dy, x, weight, rstats, grad)
+            torch.cuda.synchronize()
+            kind = BN_DTYPES[out_dtype]
+            pairs = [("y", y, ry), ("dscale", wg.grad, rdw), ("dbias", bg.grad, rdb), ("running_mean", rm, rrm),
+                     ("running_var", rv, rrv)] + ([("dx", xg.grad, rdx)] if grad else [])
+            errs = {name: float((got.double() - want.double()).abs().max() / want.double().abs().max())
+                    for name, got, want in pairs}
+            gates = {"y": 2 ** -7 if out_dtype == torch.bfloat16 else 1e-5,
+                     "dx": 2 ** -7 if in_dtype == torch.bfloat16 else 1e-4,
+                     "dscale": 1e-4, "dbias": 1e-4, "running_mean": 1e-5, "running_var": 1e-5}
+            log(f"{what} ({count} a step): relative error to the plain version (max |d| / max |ref|) "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if (any(v > gates[k] for k, v in errs.items()) or y.stride() != x.stride()
+                    or (grad and xg.grad.stride() != x.stride()) or (not grad and xg.grad is not None)
+                    or bk.LAUNCHES != {kind: 1, f"{kind}_backward": 1}):
+                raise SystemExit(f"{what}: the kernel disagrees with its plain version: {errs}, {dict(bk.LAUNCHES)}")
+            max_err = max(max_err, *errs.values())
+            del y, ry, rdx, rdw, rdb, xg, wg, bg
+            args = (weight, bias, rm, rv, 1e-3, 0.99, out_dtype)
+            _, stats, sums = bk._forward(x, *args)
+            ms_f = cuda_ms(lambda: bk._forward(x, *args))
+            ms_b = cuda_ms(lambda: bk._backward(dy, x, weight, stats, sums, grad))
+            b_f, b_b = bn_bytes(in_dtype, out_dtype, grad)
+            bound_f, bound_b = (b * x.numel() / PEAK_HBM * 1e3 for b in (b_f, b_b))
+            entry = dict(shape=list(shape), in_dtype=BN_DTYPES[in_dtype], out_dtype=kind, nhwc=nhwc, dx=grad,
+                         calls=count, forward_ms=ms_f, backward_ms=ms_b, bound_ms=bound_f + bound_b,
+                         bytes_per_element=b_f + b_b, max_rel_err=max(errs.values()))
+            log(f"{what}: forward {ms_f:.4f} ms (bound {bound_f:.4f}, {100 * bound_f / ms_f:.1f} %), backward "
+                f"{ms_b:.4f} ms (bound {bound_b:.4f}, {100 * bound_b / ms_b:.1f} %) at {b_f} + {b_b} B an element")
+            if key == head:
+                plain_f = cuda_ms(lambda: bk.forward_ref(x, *args), iters=3, warmup=1)
+                plain_b = cuda_ms(lambda: bk.backward_ref(dy, x, weight, stats, grad), iters=3, warmup=1)
+                lib_f = cuda_ms(lambda: F.batch_norm(x, rm, rv, weight, bias, training=True, momentum=0.01, eps=1e-3))
+                xl = x.detach().requires_grad_()
+                wl, bl = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+                yl = F.batch_norm(xl, rm, rv, wl, bl, training=True, momentum=0.01, eps=1e-3)
+                lib_b = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy.to(yl.dtype), retain_graph=True))
+                i, o = x.element_size(), dy.element_size()
+                once = (i + o + o + i + (i if grad else 0)) * x.numel()  # x in, y out; dy and x in, dx out
+                headline = dict(entry, ms=ms_f + ms_b, plain_ms=plain_f + plain_b, library_ms=lib_f + lib_b,
+                                bound_once_ms=once / PEAK_HBM * 1e3, bound_by="bytes")
+                log(f"{what}: forward + backward kernel {ms_f + ms_b:.4f} ms, plain {plain_f + plain_b:.4f} ms "
+                    f"(forward {plain_f:.4f}), library (F.batch_norm training=True, {BN_DTYPES[x.dtype]} in and out) "
+                    f"{lib_f + lib_b:.4f} ms (forward {lib_f:.4f}), bound {bound_f + bound_b:.4f} ms "
+                    f"({100 * (bound_f + bound_b) / (ms_f + ms_b):.1f} %), each byte once "
+                    f"{headline['bound_once_ms']:.4f} ms")
+                del xl, yl
+            shapes.append(entry)
+            del x, dy, stats, sums
+            torch.cuda.empty_cache()
+        step_ms = sum((e["forward_ms"] + e["backward_ms"]) * e["calls"] for e in shapes)
+        step_bound = sum(e["bound_ms"] * e["calls"] for e in shapes)
+        log(f"bn_train {mode} step at {batch} pairs, its 18 BNs forward + backward: kernel {step_ms:.4f} ms, bound "
+            f"{step_bound:.4f} ms ({100 * step_bound / step_ms:.1f} %); " + smi_line())
+        out[mode] = dict(headline, max_rel_err=max_err, step_ms=step_ms, step_bound_ms=step_bound, shapes=shapes)
+    return out
+
+
 def main_path(fn):
     """Run one main-path call with every kernel count at 0 just before it;
     add the counts read just after to MAIN_PATH_LAUNCHES and return
     (result, counts)."""
-    from l3embedding_torch.ops import block1_kernel, int8_conv_kernel, mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, bn_kernel, int8_conv_kernel, mel_kernel, spec_kernel
 
     mel_kernel.LAUNCHES.clear()
     spec_kernel.LAUNCHES.clear()
     block1_kernel.LAUNCHES.clear()
     int8_conv_kernel.LAUNCHES.clear()
+    bn_kernel.LAUNCHES.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = Counter({f"mel_frontend_{k}": v for k, v in mel_kernel.LAUNCHES.items()})
     counts.update({f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()})
     counts.update({f"{k}_bf16": v for k, v in block1_kernel.LAUNCHES.items()})
     counts.update({f"int8_conv_{k}": v for k, v in int8_conv_kernel.LAUNCHES.items()})
+    counts.update({f"bn_train_{k}": v for k, v in bn_kernel.LAUNCHES.items()})
     MAIN_PATH_LAUNCHES.update(counts)
     return out, counts
 
@@ -2071,8 +2215,10 @@ def phase_ddp(dev):
     bf16 step at phase_train's bf16 card gates, per_replica's running statistics
     against the mean of one-process steps on each rank's rows, the ranks'
     states equal, run_epochs in one run dir written by the chief alone with
-    equal histories, and a stop raised on rank 1 alone taken by every rank
-    at one step. With two or more cards: ms a step at 64 rows a card on
+    equal histories, a stop raised on rank 1 alone taken by every rank
+    at one step, and each rank's launches: the bf16 sync step's 18
+    BatchNorms forward and backward on the kernel (their sums all-reduced),
+    the f32 steps' too. With two or more cards: ms a step at 64 rows a card on
     1…N cards and the scaling efficiency."""
     import tempfile
 
@@ -2146,7 +2292,11 @@ def phase_ddp(dev):
                 failures.append("preemption")
             for r in recs:
                 MAIN_PATH_LAUNCHES.update(r["launches"])
-                if r["launches"].get("mel_frontend_f32", 0) < 1 or r["launches"].get("mel_frontend_bf16", 0) < 1:
+                launched = r["launches"].get
+                # The bf16 step is the sync one alone: its 18 BNs on the kernel, their sums all-reduced.
+                if (launched("mel_frontend_f32", 0) < 1 or launched("mel_frontend_bf16", 0) < 1
+                        or launched("bn_train_bf16", 0) != 18 or launched("bn_train_bf16_backward", 0) != 18
+                        or launched("bn_train_f32", 0) < 36 or launched("bn_train_f32_backward", 0) < 36):
                     failures.append(f"rank {r['rank']} launches {r['launches']}")
             ms = statistics.median(recs[0]["step_ms"])
             log(f"{what}: f32 sync step at global batch {DDP_BATCH} ({DDP_BATCH // nproc} a rank): median "
@@ -2621,12 +2771,12 @@ def classify_with_sklearn(dev, root: str) -> None:
 
 def build_kernels():
     """Build every kernel source at once (one nvcc each), then load them."""
-    from l3embedding_torch.ops import block1_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
+    from l3embedding_torch.ops import block1_kernel, bn_kernel, cuda_build, int8_conv_kernel, mel_kernel, spec_kernel
 
     from l3embedding_torch import native
 
     t0 = time.perf_counter()
-    names = ("mel_frontend", "spec_frontend", "block1_conv", "int8_conv")
+    names = ("mel_frontend", "spec_frontend", "block1_conv", "int8_conv", "bn_train")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         host = pool.submit(native.build)
         for name, lib in zip(names, pool.map(lambda n: cuda_build.build(n, verbose=True), names)):
@@ -2639,11 +2789,13 @@ def build_kernels():
     spec_kernel._library()
     block1_kernel._library()
     int8_conv_kernel._library()
+    bn_kernel._library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
 
 # name → (source, the JAX package's kernel it replaces, operand types). The
-# int8 conv replaces an XLA conv (s8 × s8 → s32), not a Pallas kernel.
+# int8 conv replaces an XLA conv (s8 × s8 → s32), not a Pallas kernel; the
+# train-mode BatchNorm replaces none (XLA's BatchNorm in the JAX package).
 KERNELS = {
     "mel_frontend": ("l3embedding_torch/csrc/mel_frontend.cu", "l3embedding_tpu/ops/pallas_frontend.py:81",
                      ("bf16", "f32")),
@@ -2652,6 +2804,7 @@ KERNELS = {
     "block1_gemm": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:115", ("bf16",)),
     "block1_conv": ("l3embedding_torch/csrc/block1_conv.cu", "tools/pallas_block1_spike.py:150", ("bf16",)),
     "int8_conv": ("l3embedding_torch/csrc/int8_conv.cu", "l3embedding_tpu/embed/quantized.py:132", ("s8",)),
+    "bn_train": ("l3embedding_torch/csrc/bn_train.cu", None, ("bf16", "f32")),
 }
 
 
@@ -2680,6 +2833,7 @@ def main() -> int:
                 **phase_block1(dev)}
     measured = {name: by_mode(r) for name, r in measured.items()}
     measured["int8_conv"] = {"s8": phase_int8_kernel(dev)[True]}
+    measured["bn_train"] = phase_bn_kernel(dev)
     phase_slice(dev)
     phase_avc(dev)
     phase_image(dev)

@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.bn_kernel import bn_train
 from ..ops.frontend import MelConfig, SpectrogramConfig, l3_log_norm
 from ..ops.mel_kernel import melspectrogram_fused
 from ..ops.spec_kernel import spectrogram_fused
@@ -44,6 +45,7 @@ from ..utils import trace
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # bn_train's input and output types
 
 
 @dataclass(frozen=True)
@@ -204,16 +206,28 @@ def _batch_moments(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
         train: bool = False) -> torch.Tensor:
-    """BatchNorm computed in f32, output rounded to `dtype` (``_bn_f32``).
+    """BatchNorm computed in f32, output rounded to `dtype`.
+
+    Train mode on the card (a bf16 or f32 CUDA tensor) is the hand-written
+    kernel (``ops/bn_kernel.py::bn_train``, with its own backward), inside
+    ``sync_batch_norm`` with its sums all-reduced over the group; everything
+    else (the CPU, float64, eval mode) is ``_bn_f32``, the same function in
+    tensor ops.
 
     While tracing is on (``utils/trace.py``) each call is a ``tower.bn``
     span, its casts in and out included, and in train mode its backward is
     one too: from the output's gradient to the input's (for an input that
-    takes no gradient, to the per-channel scale's; the scale's and the
-    bias's last (C,)-sized kernels fall just outside)."""
+    takes no gradient, to the per-channel scale's: in tensor ops the scale's
+    and the bias's last (C,)-sized kernels fall just outside; on the kernel
+    the scale is an alias of γ, whose gradient comes with the bias's)."""
     with trace.span("tower.bn", x.device):
-        y, scale = _bn_f32(bn, x, train)
-        y = y.to(dtype)
+        if train and x.is_cuda and x.dtype in _KERNEL_DTYPES and dtype in _KERNEL_DTYPES:
+            scale = bn.weight.view_as(bn.weight)
+            y = bn_train(x, scale, bn.bias, bn.running_mean, bn.running_var, bn.eps, BN_MOMENTUM, dtype,
+                         group=_BN_GROUP.get())
+        else:
+            y, scale = _bn_f32(bn, x, train)
+            y = y.to(dtype)
     if train:
         trace.backward_span("tower.bn", y, x if x.requires_grad else scale)
     return y

@@ -56,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.registry import build_model
-from ..ops import mel_kernel, spec_kernel
+from ..ops import bn_kernel, mel_kernel, spec_kernel
 from ..parallel import (
     create_mesh,
     data_group,
@@ -94,7 +94,13 @@ def _state(dtype, device, seed, mesh=None):
 
 def _launches() -> dict:
     return {**{f"mel_frontend_{k}": v for k, v in mel_kernel.LAUNCHES.items()},
-            **{f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()}}
+            **{f"spec_frontend_{k}": v for k, v in spec_kernel.LAUNCHES.items()},
+            **{f"bn_train_{k}": v for k, v in bn_kernel.LAUNCHES.items()}}
+
+
+def _clear_launches() -> None:
+    for counts in (mel_kernel.LAUNCHES, spec_kernel.LAUNCHES, bn_kernel.LAUNCHES):
+        counts.clear()
 
 
 def digests(model) -> dict:
@@ -154,8 +160,7 @@ def check(work: str, seed: int) -> None:
         raise SystemExit("dp_check check: needs a job of two or more processes")
     record, arrays = {"rank": rank(), "world": world_size(), "device": str(device),
                       "backend": dist.get_backend(group)}, {}
-    mel_kernel.LAUNCHES.clear()
-    spec_kernel.LAUNCHES.clear()
+    _clear_launches()
     batch = _batch(z, 0, device, group)
     for name, dtype, bn_mode in (("f32", torch.float32, "sync"), ("bf16", torch.bfloat16, "sync"),
                                  ("per_replica", torch.float32, "per_replica")):
@@ -224,8 +229,7 @@ def check_tp(work: str, seed: int, model_axis: int) -> None:
     record = {"rank": rank(), "world": world_size(), "device": str(device), "backend": dist.get_backend(),
               "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index]}
     arrays = {}
-    mel_kernel.LAUNCHES.clear()
-    spec_kernel.LAUNCHES.clear()
+    _clear_launches()
     batch = _batch(z, 0, device, mesh)
     for name, dtype, accum_steps in (("f32", torch.float32, 1), ("bf16", torch.bfloat16, 1),
                                      ("accum2", torch.float32, 2)):
