@@ -11,7 +11,11 @@ plus ``--device`` (default cuda; cpu runs the plain versions):
 
 ``--features vggish`` needs no model path: the VGGish baseline
 (``models/vggish.py``, weights from ``--vggish-resources-dir``) writes
-``features/<dataset>/vggish/fold<k>/*.npz``.
+``features/<dataset>/vggish/fold<k>/*.npz``. ``--features whisper`` neither:
+Whisper large-v3's audio encoder (``embed/whisper.py``, weights from
+``--whisper-weights``, bf16 with ``--fast``) writes each file's encoder
+frame rows, (30 s windows × 1500, 1280), to
+``features/<dataset>/whisper/fold<k>/*.npz``.
 
 ``--mesh`` replicates the tower on every visible card and splits each
 window batch over them. ``--int8`` calibrates the int8 tower on
@@ -38,6 +42,7 @@ from ..data.usc.datasets import (
 from ..data.usc.features import check_feature_type
 from ..embed.extract import EmbeddingExtractor
 from ..embed.quantized import QuantizedEmbeddingExtractor
+from ..embed.whisper import WhisperExtractor
 from ..models.vggish import VGGishExtractor
 from ..utils.log import init_console_logger
 
@@ -53,7 +58,7 @@ def parse_arguments(argv=None) -> dict:
     parser.add_argument("-v", "--verbose", dest="verbose", action="store_true",
                         default=False, help="Print detailed messages")
     parser.add_argument("-f", "--features", dest="features", type=str,
-                        default="l3", help="Type of features ('l3' or 'vggish')")
+                        default="l3", help="Type of features ('l3', 'vggish' or 'whisper')")
     parser.add_argument("-lmp", "--l3embedding-model-path",
                         dest="l3embedding_model_path", type=str,
                         help="Path to L3 embedding model weights file")
@@ -124,6 +129,10 @@ def parse_arguments(argv=None) -> dict:
     parser.add_argument("--vggish-resources-dir", dest="vggish_resources_dir", type=str,
                         help="Directory of vggish_model.npz and vggish_pca_params.npz "
                         "(default: resources/vggish of this checkout)")
+    parser.add_argument("--whisper-weights", dest="whisper_weights", type=str,
+                        help="Whisper encoder weights for --features whisper: Whisper's "
+                        ".pt, a torch state dict or .safetensors, in Whisper's or Hugging "
+                        "Face's names (default: a seeded random init, with a warning)")
     parser.add_argument("--device", dest="device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain versions)")
     parser.add_argument("--fold", dest="fold", type=int,
@@ -213,6 +222,9 @@ def main(argv=None) -> int:
     if features == "vggish":
         dataset_output_dir = os.path.join(args["output_dir"], "features", dataset_name, features)
         l3embedding_model = VGGishExtractor(args["vggish_resources_dir"], device=args["device"])
+    elif features == "whisper":
+        dataset_output_dir = os.path.join(args["output_dir"], "features", dataset_name, features)
+        l3embedding_model = WhisperExtractor(args["whisper_weights"], fast=args["fast"], device=args["device"])
     else:
         if not model_path:
             raise ValueError("Must provide model path if L3 embedding features are used")

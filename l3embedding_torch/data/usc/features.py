@@ -2,8 +2,9 @@
 ``l3embedding_tpu/data/usc/features.py``, reference data/usc/features.py).
 
 ``compute_file_features`` computes 'l3' features with the port's
-extractors (``EmbeddingExtractor`` or ``QuantizedEmbeddingExtractor``) and
-'vggish' features with the resident ``models.vggish.VGGishExtractor``. The
+extractors (``EmbeddingExtractor`` or ``QuantizedEmbeddingExtractor``),
+'vggish' features with the resident ``models.vggish.VGGishExtractor`` and
+'whisper' features with ``embed.whisper.WhisperExtractor``. The
 numpy / scipy helpers are copies. The preprocessing that fits sklearn
 scalers (``preprocess_split_data``) imports sklearn inside the function, so
 that the extraction stage (``05``) starts on a machine without it.
@@ -200,9 +201,30 @@ def get_vggish_frames_uniform(audio_path, hop_size=0.1, resources_dir=None, devi
     return extractor.embed_file(audio_path, hop_size=hop_size)
 
 
+class _FrameRows:
+    """A Whisper extractor's handle whose ``result()`` gives its (windows,
+    frames, dim) rows as (windows · frames, dim) frame rows."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    def result(self) -> np.ndarray:
+        rows = self.handle.result()
+        return rows.reshape(-1, rows.shape[-1])
+
+
+def get_whisper_frames(audio_path, extractor, defer=False):
+    """Whisper encoder frame rows of one file, 20 ms a row: the file at
+    16 kHz in non-overlapping 30 s windows, the last zero-padded, each
+    window's 1500 rows in order (those of the last window's padding
+    included). defer=True returns a handle whose ``result()`` gives them."""
+    rows = _FrameRows(extractor.embed_audio_async(load_audio(audio_path, extractor.sr)))
+    return rows if defer else rows.result()
+
+
 def check_feature_type(feature_type: str) -> None:
-    """Raise for a feature type that is neither 'l3' nor 'vggish'."""
-    if feature_type not in ("l3", "vggish"):
+    """Raise for a feature type that is not 'l3', 'vggish' or 'whisper'."""
+    if feature_type not in ("l3", "vggish", "whisper"):
         raise ValueError(f"Invalid feature type: {feature_type}")
 
 
@@ -210,9 +232,9 @@ def compute_file_features(path, feature_type, l3embedding_model=None, defer=Fals
     """Dispatch (reference features.py:309-323). `l3embedding_model` is an
     extractor (name kept for CLI-surface parity; for 'vggish' a
     ``VGGishExtractor``, or None for the cached one of
-    ``feature_args["resources_dir"]``). defer=True returns an L3
-    extractor's asynchronous handle instead of an ndarray; VGGish rows are
-    returned as an ndarray."""
+    ``feature_args["resources_dir"]``; for 'whisper' a ``WhisperExtractor``).
+    defer=True returns an L3 or Whisper extractor's asynchronous handle
+    instead of an ndarray; VGGish rows are returned as an ndarray."""
     check_feature_type(feature_type)
     hop_size = feature_args.get("hop_size", 0.1)
     if feature_type == "vggish":
@@ -220,6 +242,8 @@ def compute_file_features(path, feature_type, l3embedding_model=None, defer=Fals
             path, hop_size=hop_size, resources_dir=feature_args.get("resources_dir"),
             device=feature_args.get("device", "cuda"), extractor=l3embedding_model,
         )
+    if feature_type == "whisper":
+        return get_whisper_frames(path, l3embedding_model, defer=defer)
     if not l3embedding_model:
         raise ValueError(f"Must provide L3 embedding model to use {feature_type} features")
     return get_l3_frames_uniform(path, l3embedding_model, hop_size=hop_size, defer=defer)

@@ -70,11 +70,14 @@ def frame_uniform(audio: np.ndarray, sr: int = 48000, hop_size: float = 0.1):
     ).astype(np.float32)
 
 
-def _bucket(n: int) -> int:
-    for b in BUCKETS:
+def _bucket(n: int, buckets: Sequence[int] | None = None) -> int:
+    """The smallest of `buckets` (default BUCKETS) that holds n rows, or
+    the next multiple of the largest."""
+    buckets = buckets or BUCKETS
+    for b in buckets:
         if n <= b:
             return b
-    return int(np.ceil(n / BUCKETS[-1])) * BUCKETS[-1]
+    return int(np.ceil(n / buckets[-1])) * buckets[-1]
 
 
 def replica_devices(devices, device, db_batch_global: bool):
@@ -95,16 +98,20 @@ def split_bucket(n: int, n_devices: int) -> int:
 
 
 class EmbeddingRows:
-    """Handle of an asynchronous extraction: the (n, dim) rows, copied (or
-    being copied) into a host tensor. On a card the host tensor is pinned,
+    """Handle of an asynchronous extraction: the (n, dim) rows (a Whisper
+    extractor's (n, frames, dim)), copied (or being copied) into a host
+    tensor. On a card the host tensor is pinned,
     owned by this handle, and filled by non-blocking copies, with one CUDA
     event recorded behind each copy; ``result()`` waits on those events (not
-    on the whole device) and returns the rows as a new numpy array. Use
-    ``result()``: ``np.asarray`` of the handle is not supported."""
+    on the whole device) and returns the rows as a new numpy array, or, with
+    copy=False, as a numpy view of the pinned tensor, which goes back to
+    torch's pinned cache once the view is gone. Use ``result()``:
+    ``np.asarray`` of the handle is not supported."""
 
-    def __init__(self, host: torch.Tensor, events: Sequence = ()):
+    def __init__(self, host: torch.Tensor, events: Sequence = (), copy: bool = True):
         self._host = host
         self._events = list(events)
+        self._copy = copy
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -113,7 +120,7 @@ class EmbeddingRows:
     def result(self) -> np.ndarray:
         for event in self._events:
             event.synchronize()
-        if self._events:
+        if self._events and self._copy:
             return self._host.numpy().copy()
         return self._host.numpy()
 
@@ -149,6 +156,14 @@ class EmbeddingExtractor:
     Every call runs on the stream that was current on each device when the
     extractor was built, whichever thread makes the call.
     """
+
+    # result() hands out a copy of the pinned rows, so that rows a caller
+    # keeps do not keep pinned memory.
+    copy_rows = True
+    # The rows' copy to the host runs on the call's own stream; True puts it
+    # on a second stream of the device, behind the forward, so that it
+    # overlaps the next call's forward.
+    side_download = False
 
     def __init__(
         self,
@@ -192,6 +207,8 @@ class EmbeddingExtractor:
         self.model = self.models[0]
         self._replicas = replicas
         self._streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None for d in replicas]
+        self._download_streams = [torch.cuda.Stream(d) if s is not None and self.side_download else s
+                                  for d, s in zip(replicas, self._streams)]
         self.device_framing = bool(device_framing)
         self.bytes_uploaded = 0  # host→device bytes of PCM and windows, over the extractor's life
         self._count_lock = threading.Lock()
@@ -217,8 +234,9 @@ class EmbeddingExtractor:
             dst.copy_(staged, non_blocking=True)
 
     def _forward_rows(self, chunks: list, n: int) -> EmbeddingRows:
-        """One (rows, 48000) window tensor per replica → the first n rows of
-        their embeddings, copied back into one host tensor. Counts the call's
+        """One (rows, samples) window tensor per replica → the first n rows
+        of their embeddings (each row (dim,), or any shape the model gives a
+        window), copied back into one host tensor. Counts the call's
         real rows and the rows the towers compute (``rows``, ``bucket_rows``
         of the ``extract.call`` span)."""
         if trace.on():
@@ -227,22 +245,26 @@ class EmbeddingExtractor:
         with trace.span("extract.forward"):
             for i, x in enumerate(chunks):
                 with self._on_stream(i):
-                    outs.append(self.models[i](x[:, None, :]))  # (B, 1, 48000) reference input convention
+                    outs.append(self.models[i](x[:, None, :]))  # (B, 1, samples) reference input convention
         if all(out.device.type == "cpu" for out in outs):
             return EmbeddingRows((outs[0] if len(outs) == 1 else torch.cat(outs))[:n])
         with trace.span("extract.download"):
-            host = torch.empty((n, outs[0].shape[1]), dtype=torch.float32, pin_memory=True)
+            host = torch.empty((n, *outs[0].shape[1:]), dtype=torch.float32, pin_memory=True)
             events, start = [], 0
             for i, out in enumerate(outs):
                 rows = min(out.shape[0], n - start)
                 if rows > 0:
-                    with self._on_stream(i):
+                    stream = self._download_streams[i]
+                    if stream is not self._streams[i]:
+                        stream.wait_stream(self._streams[i])
+                        out.record_stream(stream)
+                    with torch.cuda.stream(stream):
                         host[start : start + rows].copy_(out[:rows], non_blocking=True)
                         event = torch.cuda.Event()
-                        event.record(self._streams[i])
+                        event.record(stream)
                         events.append(event)
                 start += out.shape[0]
-        return EmbeddingRows(host, events)
+        return EmbeddingRows(host, events, copy=self.copy_rows)
 
     def _embed_device_framed(self, audio: np.ndarray, hop_size: float) -> EmbeddingRows:
         """Framing on the device, as ``l3embedding_tpu/embed/extract.py::_DeviceFramer``.

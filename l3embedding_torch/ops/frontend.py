@@ -295,3 +295,43 @@ def spectrogram_bf16(x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig
     p = power_frames(x, cfg.n_dft, cfg.hop, cfg.padding, torch.bfloat16, cfg.n_win)
     s = p ** (cfg.power / 2.0) if cfg.power != 2.0 else p
     return to_nhwc_db(s, cfg)
+
+
+# Whisper's log-mel front end (openai/whisper, whisper/audio.py).
+WHISPER_SR = 16000
+WHISPER_N_FFT = 400
+WHISPER_HOP = 160
+WHISPER_N_SAMPLES = 480_000  # one 30 s window
+WHISPER_N_FRAMES = 3000
+
+
+@functools.lru_cache(maxsize=None)
+def whisper_mel_filters_f32(n_mels: int) -> np.ndarray:
+    """(n_mels, 201): Slaney-scale, Slaney-normalised filters of a 400-point
+    STFT at 16 kHz (librosa's ``mel(sr=16000, n_fft=400, n_mels=n_mels)``,
+    which Whisper ships as ``mel_filters.npz``)."""
+    return dsp_ref.mel_filterbank(
+        WHISPER_SR, WHISPER_N_FFT, n_mels, htk=False, norm="slaney"
+    ).astype(np.float32)
+
+
+def whisper_log_mel(pcm: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
+    """(B, n) 16 kHz PCM → (B, n_mels, n // 160) Whisper log-mel features, f32:
+    reflect-centred 400-point frames at hop 160 under a periodic Hann
+    window, |X|² with the last frame dropped, the Slaney mel product,
+    log10(max(m, 1e-10)) clamped at each window's max − 8, then (x + 4) / 4.
+    The max is per window (Whisper's is over its whole input, one window).
+    The hand-written mel kernel takes neither n_dft 400 nor this log, so
+    this is tensor ops; on the card the product keeps TF32 off."""
+    from ..models.towers import ieee_fp32  # towers imports this module
+
+    x = pcm.float()
+    window = torch.hann_window(WHISPER_N_FFT, device=x.device)
+    stft = torch.stft(x, WHISPER_N_FFT, WHISPER_HOP, window=window, return_complex=True)
+    power = stft[..., :-1].abs() ** 2
+    filters = torch.from_numpy(whisper_mel_filters_f32(n_mels)).to(x.device)
+    with ieee_fp32(x.is_cuda):
+        mel = filters @ power
+    log_spec = torch.clamp(mel, min=1e-10).log10()
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+    return (log_spec + 4.0) / 4.0

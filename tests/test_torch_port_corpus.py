@@ -148,8 +148,9 @@ def test_05_cli_writes_the_jax_tree(corpus, jax_extractor, tmp_path, dataset):
     """The port's 05 CLI writes the npz tree that JAX's generators write:
     the same files under features/<dataset>/l3/short/<subset>/tiny_L3/fold<k>/,
     keys, dtypes, shapes and y, rows at cosine >= 0.99999; config_None.json
-    has the JAX CLI's keys plus the port's device and vggish_resources_dir
-    (the JAX CLI reads VGGish weights from resources/vggish only)."""
+    has the JAX CLI's keys plus the port's device, vggish_resources_dir
+    (the JAX CLI reads VGGish weights from resources/vggish only) and
+    whisper_weights (the port's --features whisper)."""
     argv = ["-lmp", corpus["ckpt"], "-lpt", "short", "-hs", str(HOP), dataset, corpus[dataset], str(tmp_path / "port")]
     if dataset == "us8k":
         argv[:0] = ["-ump", corpus["meta"]]
@@ -157,7 +158,7 @@ def test_05_cli_writes_the_jax_tree(corpus, jax_extractor, tmp_path, dataset):
     out = tmp_path / "port" / "features" / dataset / "l3" / "short" / "music_subset" / TINY
     with open(out / "config_None.json") as f:
         config = json.load(f)
-    assert set(config) == _jax_cli_keys(argv) | {"device", "vggish_resources_dir"}
+    assert set(config) == _jax_cli_keys(argv) | {"device", "vggish_resources_dir", "whisper_weights"}
     assert config["device"] == "cpu" and config["features_dir"] == str(out)
 
     theirs_dir = str(tmp_path / "jax")
